@@ -51,17 +51,6 @@ class SLICParams:
     depth_sigma: float = 0.0
     normal_sigma: float = 0.0
     iterations: int = 1
-    # seed-gradient backend: "auto" picks the fused Pallas kernel
-    # (ops/pallas_gradient.py, bitwise-equal) on TPU and the XLA path
-    # elsewhere; "xla" / "pallas" force one ("pallas" runs in interpret mode
-    # off-TPU).  Sharded pipelines force "xla" at spatial > 1: a pallas_call
-    # cannot be partitioned by GSPMD (see parallel/sharding.py).
-    grad_impl: str = "auto"
-    # NASP cluster-statistics backend: "auto" picks the fused Pallas cell-sums
-    # kernel (ops/pallas_nasp.py; same sums up to f32 accumulation order) on
-    # TPU for single-iteration cell-local segmentations, the one-hot-matmul
-    # XLA route elsewhere.  Same sharding rule as grad_impl.
-    stats_impl: str = "auto"
     # Later-iteration (2+) label-index route.  "auto": run the capped
     # cell-space fast path guarded by a runtime locality check with an exact
     # lax.cond fallback to the global [H*W, K]-one-hot route (identical
@@ -128,19 +117,11 @@ class NormalParams:
     method: str = "cm"
     max_depth_change_factor: float = 0.05  # metres
     normal_smoothing_size: float = 20.0    # pixels
-    # covariance-sweep backend for the CM method: "auto" picks the fused
-    # Pallas kernel (ops/pallas_cov.py, bit-exact, ~8x faster) on TPU and the
-    # portable XLA path elsewhere; "xla" / "pallas" force one.
-    cov_impl: str = "auto"
     # Reference's chamfer DT is exact two-pass host code; we run a bounded
     # device-side min-plus relaxation instead.  The smoothing map is clamped to
     # <= normal_smoothing_size + z/10, so distances beyond ~24 px never matter;
     # dt_iterations sweeps of 1-step relaxation cover a radius of dt_iterations.
     dt_iterations: int = 26
-    # chamfer-DT backend: "auto" runs all iterations in one VMEM-resident
-    # Pallas launch on TPU (ops/pallas_dt.py, bitwise-equal — min-plus is
-    # exact and order-insensitive in f32); same sharding rule as cov_impl.
-    dt_impl: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)

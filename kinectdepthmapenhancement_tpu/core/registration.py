@@ -6,7 +6,7 @@ Kinect/Kinect.cpp:70-75) and the intrinsic matrix is derived from the
 depth generator's ZPD/ZPPS properties as fx = fy = F / (2 * pixel_size),
 cx = W/2, cy = H/2 (Kinect/Kinect.cpp:89-95).
 
-On a TPU host there is no OpenNI; this module provides device-side
+Without OpenNI, this module provides device-side
 equivalents so unregistered RGB-D datasets (NYU-v2 raw / TUM) can feed the
 pipelines:
 
@@ -17,7 +17,7 @@ pipelines:
     intrinsics, scatter-MIN z per target pixel (the near surface wins, which
     is what the hardware viewpoint mapping does).  Pure jnp; jittable.
 
-Scatter-min is not MXU work, but registration runs once per frame at most
+Scatter-min uses atomics, but registration runs once per frame at most
 (usually once per dataset) — it is a pre-processing op, not a pipeline stage.
 """
 
@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from kinectdepthmapenhancement_tpu.core.camera import Intrinsics
 
@@ -83,7 +84,10 @@ def register_depth_to_color(
     y = (depth_intr.cy - v) / depth_intr.fy * z
     pts = jnp.stack([x, y, z], axis=-1).reshape(-1, 3)
 
-    pc = pts @ extr.rotation.T + extr.translation
+    pc = (
+        jnp.matmul(pts, extr.rotation.T, precision=lax.Precision.HIGHEST)
+        + extr.translation
+    )
     zc = pc[:, 2]
     valid = (depth.reshape(-1) > 0.0) & (zc > 1.0)
     safe_z = jnp.where(valid, zc, 1.0)

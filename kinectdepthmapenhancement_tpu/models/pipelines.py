@@ -135,10 +135,7 @@ def kde_pipeline(
     # single-iteration NASP labels are cell-local, so CCL can reuse the
     # cell-local index (XLA CSEs its one-hot with the SLIC-internal one)
     nasp_cell = (
-        slic.cell_index(
-            nasp.labels, cfg.grid, neighborhood=8,
-            stats_impl=cfg.nasp.stats_impl,
-        )
+        slic.cell_index(nasp.labels, cfg.grid, neighborhood=8)
         if cfg.nasp.iterations == 1
         else None
     )
@@ -229,7 +226,7 @@ def kde_pipeline(
 _LOCAL_CAP = 4  # cell-locality cap for ERS-refined labels (runtime-checked)
 
 
-def _with_local_index(fn, labels, grid, *, stats_impl="auto", locality="auto"):
+def _with_local_index(fn, labels, grid, *, locality="auto"):
     """Run fn(index) with a cell-local label index over `labels` when the
     [-cap, cap-1]^2 locality invariant holds, falling back to fn(None) (the
     global [H*W, K]-one-hot route) via lax.cond otherwise — exact either way.
@@ -242,9 +239,7 @@ def _with_local_index(fn, labels, grid, *, stats_impl="auto", locality="auto"):
     """
     h, w = labels.shape
     idx = (
-        slic.cell_index(
-            labels, grid, neighborhood=2 * _LOCAL_CAP, stats_impl=stats_impl
-        )
+        slic.cell_index(labels, grid, neighborhood=2 * _LOCAL_CAP)
         if locality != "global"
         else None
     )
@@ -306,7 +301,6 @@ def spdsp_pipeline(
 
     planes, plane_fitted, gate = _with_local_index(
         fit_and_project, refined.labels, cfg.grid,
-        stats_impl=cfg.depth_slic.stats_impl,
         locality=cfg.depth_slic.locality,
     )
     plane_ok = gate[0] if gate else None
@@ -355,7 +349,6 @@ def tof_pipeline(
 
     planes, merged, plane_fitted = _with_local_index(
         fit_merge_project, refined.labels, cfg.grid,
-        stats_impl=cfg.depth_slic.stats_impl,
         locality=cfg.depth_slic.locality,
     )
     return TOFResult(

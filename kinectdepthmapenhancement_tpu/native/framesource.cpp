@@ -2,7 +2,7 @@
 //
 // The reference's host layer (Kinect/SingleKinect OpenNI acquisition,
 // cv::FileStorage XML depth IO, main.cpp frame staging) is C++; this is its
-// TPU-framework equivalent: a background-threaded frame ring that decodes
+// Framework equivalent: a background-threaded frame ring that decodes
 // depth frames (OpenCV FileStorage XML subset or raw f32 .bin) and serves
 // zero-copy host buffers ready for device upload, so the accelerator never
 // waits on file IO.  Bound to Python via ctypes (see native/__init__.py);

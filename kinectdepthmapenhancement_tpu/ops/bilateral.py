@@ -1,6 +1,6 @@
 """Bilateral-family depth filters: guide smoothing, JBF, MRF.
 
-TPU-native reimplementation of:
+JAX reimplementation of:
   * cv::gpu::bilateralFilter on the colour guide (JointBilateralFilter.cu:285)
   * joint_bilateral_filtering (JointBilateralFilter.cu:4-83)
   * markov_random_field (MarkovRandomField.cu:4-40)
@@ -31,7 +31,6 @@ Numerical contracts kept from the reference:
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from kinectdepthmapenhancement_tpu.core.buffer2d import VALID_DEPTH_MM
@@ -77,31 +76,13 @@ def joint_bilateral_filter(
     depth: jnp.ndarray,
     color: jnp.ndarray,
     p: JBFParams = JBFParams(),
-    *,
-    impl: str = "xla",
 ) -> jnp.ndarray:
     """Two-pass cross-bilateral depth filter (JointBilateralFilter.cu:4-83).
 
     depth: f32 [H, W] mm; color: u8 [H, W, 3] (raw — the guide smoothing is
     applied here, as in JointBilateralFilter::Process).
-
-    impl="pallas" runs both passes as one fused VMEM-resident Pallas kernel
-    (ops/pallas_bilateral.py; bit-identical to the XLA path on TPU).  It uses
-    manual halo DMA, which Pallas cannot batch, so it is opt-in: the default
-    XLA path supports vmap/sharding and XLA already fuses the stencil well.
     """
     guide = guide_bilateral(color, p).astype(jnp.float32)
-    if impl == "pallas":
-        from kinectdepthmapenhancement_tpu.ops.pallas_bilateral import jbf_pallas
-
-        h = depth.shape[0]
-        tile = 48
-        padded_h = -(-h // tile) * tile
-        if padded_h != h:
-            dpad = jnp.pad(depth, ((0, padded_h - h), (0, 0)))
-            gpad = jnp.pad(guide, ((0, padded_h - h), (0, 0), (0, 0)))
-            return jbf_pallas(dpad, gpad, p, tile=tile)[:h]
-        return jbf_pallas(depth, guide, p, tile=tile)
     return _jbf_core(
         depth,
         guide,

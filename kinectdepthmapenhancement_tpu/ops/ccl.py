@@ -1,6 +1,6 @@
 """Superpixel merging via connected components over the cluster graph.
 
-TPU-native re-design of LabelEquivalenceSeg(+PCA) (reference
+JAX re-design of LabelEquivalenceSeg(+PCA) (reference
 LabelEquivalenceSeg/*.cu).  The reference runs a Hawick/Kalentev-style
 label-equivalence loop over the full PIXEL grid: 10 rounds of per-pixel
 neighbour scans with atomicMin into a union-find table + pointer jumping,
@@ -62,7 +62,7 @@ class MergeResult(NamedTuple):
 def _adjacency(idx) -> jnp.ndarray:
     """[K, K] bool: cluster pairs adjacent via a 4-neighbour pixel pair,
     counted through the label index (cell-local pair matrices when the
-    labels are single-iteration SLIC output, MXU one-hot matmul otherwise)."""
+    labels are single-iteration SLIC output, one-hot products otherwise)."""
     labels = idx.labels
     h, w = labels.shape
     right = jnp.concatenate(
@@ -80,12 +80,12 @@ def _components(mergeable: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
     Returns rep [K] i32 (component minimum id); invalid nodes keep own id
     (they have no mergeable edges, so reachability leaves them alone).
 
-    Computed as transitive closure by boolean matrix squaring on the MXU:
+    Computed as transitive closure by boolean matrix squaring:
     ceil(log2(K)) rounds of R <- (R @ R > 0) cover every path (bf16 0/1
     operands, f32 accumulation — counts < 2^24, exact), then rep = min
     reachable id.  Replaces the data-dependent while_loop of rounds of
-    min-propagation + pointer jumping, whose serial [K]-vector chain was
-    latency-bound on TPU (~0.27 ms of tiny kernels at K=300)."""
+    min-propagation + pointer jumping, whose serial [K]-vector chain is a
+    long sequence of tiny dependent kernels."""
     k = mergeable.shape[0]
     del valid  # invalid nodes are isolated in `mergeable` by construction
     ids = jnp.arange(k, dtype=jnp.int32)
@@ -345,9 +345,9 @@ def merge_planes(
     valid_c = fit_ok & (cnt >= float(min_points)) & (d > 1e-3)
 
     w_vec = nvec / jnp.maximum(d, 1e-6)[:, None]  # [K, 3] inverse-depth coeff
-    # HIGHEST precision is load-bearing: TPU matmuls default to bf16 passes,
-    # and (1 - a) must resolve ~1e-3 while a ~ 1.0 — at bf16's ~3e-3 the
-    # merge test is noise (measured round 5: comps fragment 85 -> 160)
+    # HIGHEST precision is load-bearing: an f32 product without it may run
+    # in bf16 or TF32, and (1 - a) must resolve ~1e-3 while a ~ 1.0 — at
+    # bf16's ~3e-3 the merge test is noise (components fragment 85 -> 160)
     hi = lax.Precision.HIGHEST
     a = jnp.einsum("pi,qi->pq", w_vec, mean, precision=hi)
     b = jnp.einsum("pi,qij,pj->pq", w_vec, cov, w_vec, precision=hi)

@@ -1,6 +1,6 @@
 """Edge-refined superpixels: boundary snapping + label-constrained bilateral.
 
-TPU-native re-design of EdgeRefinedSuperpixel (reference
+JAX re-design of EdgeRefinedSuperpixel (reference
 EdgeRefinedSuperpixel/EdgeRefinedSuperpixel.cu).
 
 edge_refining (cu:4-102) snaps depth-superpixel boundaries to colour-

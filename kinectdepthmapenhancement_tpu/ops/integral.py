@@ -9,8 +9,8 @@ I[v+vv, u+uu] + I[v, u] - I[v+vv, u] - I[v, u+uu]
 rows [v, v+vv) x cols [u, u+uu).  We reproduce that layout exactly with an
 (H+1, W+1) exclusive prefix.
 
-Precision: the reference accumulates in double.  TPUs are f32-native, so we
-use a mean-centering decomposition instead of f64 emulation: for channel c,
+Precision: the reference accumulates in double.  The pipelines run in f32, so
+we use a mean-centering decomposition instead of f64 emulation: for channel c,
 store the prefix of (c - mu_c) * valid plus an exact integer count prefix
 (counts < 2^24 are exact in f32); a box sum is then
     box(c) = box(c - mu_c) + mu_c * box(count_all)
@@ -86,7 +86,7 @@ def box_count(ci: CenteredIntegral, u, v, uu, vv) -> jnp.ndarray:
 class PaddedIntegral(NamedTuple):
     """Zero-padded prefix tables for gather-free fixed-offset box sums.
 
-    Per-pixel window SIZES serialize into gathers on TPU; instead callers
+    Per-pixel window SIZES would need per-pixel gathers; instead callers
     loop over the (few, discrete) sizes and read boxes at FIXED offsets via
     slices of these padded tables, selecting per pixel afterwards."""
 

@@ -1,6 +1,6 @@
 """Normal-map generation: SAMG smoothing-area map + SDC/CM/BILATERAL normals.
 
-TPU-native re-design of NormalEstimation/{SmoothingAreaMapGenerator,
+JAX re-design of NormalEstimation/{SmoothingAreaMapGenerator,
 NormalMapGenerator}.  Vertices are in METRES here (the reference divides the
 mm point map by 1000 on entry, NormalMapGenerator.cu:505-511).
 
@@ -109,17 +109,7 @@ def distance_transform(dci: jnp.ndarray, iterations: int) -> jnp.ndarray:
 def smoothing_map(vertices_m: jnp.ndarray, p: NormalParams) -> jnp.ndarray:
     """Final smoothing-area map = min(DT, size + z/10)  [pixels]."""
     dci = dci_map(vertices_m, p.max_depth_change_factor)
-    dt_impl = getattr(p, "dt_impl", "auto")
-    if dt_impl == "auto":
-        dt_impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if dt_impl == "pallas":
-        from kinectdepthmapenhancement_tpu.ops import pallas_dt
-
-        dt = pallas_dt.distance_transform(
-            dci, p.dt_iterations, interpret=jax.default_backend() != "tpu"
-        )
-    else:
-        dt = distance_transform(dci, p.dt_iterations)
+    dt = distance_transform(dci, p.dt_iterations)
     ddsa = p.normal_smoothing_size + vertices_m[..., 2] / 10.0
     return jnp.minimum(dt, ddsa)
 
@@ -239,7 +229,7 @@ def _cross_product_normal(vertices_m: jnp.ndarray):
     d_h, d_v, center_z, right-or-left step direction handled per reference).
 
     The data-dependent +-1 neighbour step is a select between the two
-    edge-clamped shifted images (per-pixel gathers serialize on TPU).
+    edge-clamped shifted images (no per-pixel gather).
     """
     h, w = vertices_m.shape[:2]
     vpad = jnp.pad(vertices_m, [(1, 1), (1, 1), (0, 0)], mode="edge")
@@ -314,7 +304,7 @@ def _per_size(rect: jnp.ndarray, sizes, compute):
     window size s and select per pixel where rect == s (>= for the largest —
     a documented clamp for depths beyond the Kinect range).  Gather-free: the
     per-pixel dynamic window of the reference becomes a handful of
-    fixed-offset slice expressions on TPU."""
+    fixed-offset slice expressions."""
     out = None
     for s in sizes:
         val = compute(s)
@@ -409,15 +399,8 @@ def cm_normals(
     vertices_m: jnp.ndarray,
     smoothing: jnp.ndarray,
     border: int,
-    *,
-    cov_impl: str = "xla",
 ) -> jnp.ndarray:
-    """computeNormalCM_GPU (NormalMapGenerator.cu:244-302).
-
-    cov_impl selects the covariance-sweep backend: "xla" (default; vmap- and
-    sharding-friendly) or "pallas" (ops/pallas_cov.py — the fused VMEM-
-    resident kernel, bit-exact vs the XLA path and ~8x faster on a v5e chip;
-    batched via its custom_vmap rule)."""
+    """computeNormalCM_GPU (NormalMapGenerator.cu:244-302)."""
     h, w = smoothing.shape
     v = jnp.broadcast_to(jnp.arange(h)[:, None], (h, w))
     u = jnp.broadcast_to(jnp.arange(w)[None, :], (h, w))
@@ -432,7 +415,7 @@ def cm_normals(
     #   * accumulate the box DIRECTLY from per-query-pixel centred residuals
     #     (every term is O(extent^2), so f32 matches the f64 oracle to ~1e-7).
     #     The incremental nested-window sweep visits each of the 21^2 taps
-    #     exactly once for ALL sizes, so this costs ~441 fused VPU taps.
+    #     exactly once for ALL sizes, so this costs ~441 fused taps.
     #   * the re-referenced integral path (integral_cov below) is kept for
     #     documentation but NOT used: at 640x480 the f32 global summed-area
     #     tables carry ~0.1 absolute error, the same order as the window
@@ -491,19 +474,10 @@ def cm_normals(
     # at each query vertex — would replace the direct sweep for rects far
     # beyond MAX_RECT; see integral.py.  Removed from this path: all sizes
     # here are direct, and f32 global SATs alone lose ~7 deg on clean planes.)
-    if cov_impl == "pallas":
-        from kinectdepthmapenhancement_tpu.ops.pallas_cov import cm_covariances
-
-        # off-TPU a forced "pallas" runs the same kernel in interpret mode
-        # (Mosaic has no CPU lowering) — used by the CPU-mesh sharding tests
-        cont, ent = cm_covariances(
-            vertices_m, rect, interpret=jax.default_backend() != "tpu"
-        )
-    else:
-        direct_snaps = direct_cov_all()
-        cont, ent = _per_size(
-            rect, list(range(2, MAX_RECT + 1)), lambda s: direct_snaps[s]
-        )
+    direct_snaps = direct_cov_all()
+    cont, ent = _per_size(
+        rect, list(range(2, MAX_RECT + 1)), lambda s: direct_snaps[s]
+    )
     c_xx, c_xy, c_xz = ent[..., 0], ent[..., 1], ent[..., 2]
     c_yy, c_yz, c_zz = ent[..., 3], ent[..., 4], ent[..., 5]
     cov = jnp.stack(
@@ -542,10 +516,7 @@ def generate_normal_map(
     if p.method == "sdc":
         raw = sdc_normals(vm, smooth, border)
     elif p.method == "cm":
-        cov_impl = getattr(p, "cov_impl", "auto")
-        if cov_impl == "auto":
-            cov_impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-        raw = cm_normals(vm, smooth, border, cov_impl=cov_impl)
+        raw = cm_normals(vm, smooth, border)
     else:
         raise ValueError(f"unknown normal method {p.method!r}")
     return _rest_normals(raw, vm)

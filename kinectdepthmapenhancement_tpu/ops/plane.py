@@ -1,6 +1,6 @@
 """Plane fitting, projection and optimisation.
 
-TPU-native re-design of Projection_GPU / Projection_PCA / the host PCA stage:
+JAX re-design of Projection_GPU / Projection_PCA / the host PCA stage:
 
   * set_pseudo_depth_* — project each pixel onto its cluster's plane along
     the precomputed unit ray (setPsuedoDepth overloads,
@@ -436,7 +436,7 @@ def pca_planes(
         )
         m = index.segment_sum(sq, mask)
     else:
-        onehot = tables.one_hot(flat_lab, k) if tables.use_mxu() else None
+        onehot = tables.one_hot(flat_lab, k) if tables.use_onehot() else None
 
         ones = jnp.ones((hw, 1), jnp.float32)
         sums = tables.segment_sum(

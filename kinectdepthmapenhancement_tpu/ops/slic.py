@@ -1,6 +1,6 @@
 """SLIC superpixel family: base (SP), depth-adaptive (DASP), normal-adaptive (NASP).
 
-TPU-native re-design of SuperpixelSegmentation / DepthAdaptiveSuperpixel /
+JAX re-design of SuperpixelSegmentation / DepthAdaptiveSuperpixel /
 NormalAdaptiveSuperpixel (reference SuperpixelSegmentation/*.cu).  The CUDA
 structure (one block per pixel searching neighbouring clusters; one block per
 cluster reducing a window) becomes:
@@ -15,7 +15,7 @@ cluster reducing a window) becomes:
     the old cluster centre do not contribute), computed as one-hot matmul /
     segment_sum on the flattened image.
 
-TPU fast paths (semantics-preserving):
+Fast paths (semantics-preserving):
   * first iteration: labels ARE the grid init, so a pixel's candidate
     clusters are a pure function of its grid cell — candidate features are
     BROADCAST per cell (zero gathers), and the post-assignment labels are
@@ -81,7 +81,7 @@ def force_cell(mode: Optional[bool]) -> None:
 def _use_cell() -> bool:
     if _FORCE_CELL is not None:
         return _FORCE_CELL
-    return tables.use_mxu()
+    return tables.use_onehot()
 
 
 class Clusters(NamedTuple):
@@ -131,12 +131,12 @@ def _normal_valid_and(n: jnp.ndarray) -> jnp.ndarray:
 
 class _GlobalIndex:
     """Per-pixel gathers / segment sums keyed by the full [K] cluster id
-    space — one-hot matmuls on the MXU, jnp.take/segment_sum on CPU."""
+    space — one-hot products off the CPU, jnp.take/segment_sum on it."""
 
     def __init__(self, labels: jnp.ndarray, k: int):
         self.labels = labels
         self.k = k
-        self.oh = tables.one_hot(labels, k) if tables.use_mxu() else None
+        self.oh = tables.one_hot(labels, k) if tables.use_onehot() else None
 
     def gather(self, table: jnp.ndarray) -> jnp.ndarray:
         return tables.gather(table, self.labels, onehot=self.oh)
@@ -178,14 +178,7 @@ class _CellIndex:
     gather:      out = sum_n oh[r,c,p,n] * cand_table[r,c,n,:]
     segment sum: per-cell partials oh^T @ feats -> [r,c,n,F], then a tiny
                  [r*c*n, K] one-hot matmul folds candidates back to clusters.
-    All products are exact (bf16 0/1 one-hots x 3-way bf16-split f32 tables).
-
-    (Round-4 note: a band-layout variant — multi-dim dot_general contracting
-    (bs_y, bs_x) directly, and gather as a 64-way select chain over expanded
-    candidate maps — was tried to kill the _to_cells transposes and REGRESSED
-    6.5 -> 26 ms/frame on a v5e chip: the select chain did not fuse and the
-    (rows,cols)-batched multi-dim contraction tiles terribly.  Cell space
-    [rows, cols, P, n] with explicit transposes is the fast layout here.)
+    All products are exact (0/1 one-hots x f32 tables at HIGHEST).
     """
 
     def __init__(
@@ -195,8 +188,6 @@ class _CellIndex:
         r: int,
         h: int,
         w: int,
-        *,
-        kernel_sums: Optional[bool] = None,
     ):
         rows, cols = grid.rows, grid.cols
         self.rows, self.cols = rows, cols
@@ -212,17 +203,8 @@ class _CellIndex:
         self.oh = (lb[..., None] == self.cand[:, :, None, :]).astype(jnp.bfloat16)
         self.cand_flat = self.cand.reshape(-1)
         self.oh_k = (
-            tables.one_hot(self.cand_flat, self.k) if tables.use_mxu() else None
+            tables.one_hot(self.cand_flat, self.k) if tables.use_onehot() else None
         )
-        if kernel_sums is None:
-            from kinectdepthmapenhancement_tpu.ops import pallas_nasp
-
-            kernel_sums = pallas_nasp.available()
-        # segment sums through the Pallas label-sums kernel (pixel-level
-        # one-hot matmul + feats transpose avoided); disabled under GSPMD
-        # spatial sharding (parallel/sharding.py::disable_pallas -> callers
-        # pass stats_impl="xla" through cell_index/_CellIndex)
-        self.kernel_sums = kernel_sums
 
     def _to_cells(self, x: jnp.ndarray) -> jnp.ndarray:
         """[H, W, F] -> [rows, cols, P, F]  (P = cell pixel count)."""
@@ -260,20 +242,8 @@ class _CellIndex:
         return g.reshape(self.rows, self.cols, self.n, table.shape[-1])
 
     def gather(self, table: jnp.ndarray) -> jnp.ndarray:
-        if self.kernel_sums:
-            from kinectdepthmapenhancement_tpu.ops import pallas_nasp
-
-            return pallas_nasp.label_cell_gather(
-                self.labels,
-                table.astype(jnp.float32),
-                rows=self.rows,
-                cols=self.cols,
-                r=self.r,
-                interpret=jax.default_backend() != "tpu",
-            )
         ct = self._cand_table(table)
-        # f32 HIGHEST: the bf16-split-parts route miscompiles on current XLA
-        # (parts re-merged at bf16 in a fused convolution — see tables._dot)
+        # f32 HIGHEST: exact for 0/1 one-hots (see tables._dot)
         out = lax.dot_general(
             self.oh.astype(jnp.float32), ct,
             dimension_numbers=(((3,), (2,)), ((0, 1), (0, 1))),
@@ -283,20 +253,6 @@ class _CellIndex:
         return self._from_cells(out)
 
     def segment_sum(self, feats: jnp.ndarray, mask: jnp.ndarray) -> jnp.ndarray:
-        if self.kernel_sums:
-            from kinectdepthmapenhancement_tpu.ops import pallas_nasp
-
-            part_flat = pallas_nasp.label_cell_sums(
-                self.labels,
-                (feats * mask[..., None]).astype(jnp.float32),
-                rows=self.rows,
-                cols=self.cols,
-                r=self.r,
-                interpret=jax.default_backend() != "tpu",
-            )
-            return tables.segment_sum(
-                part_flat, self.cand_flat, self.k, onehot=self.oh_k
-            )
         fb = self._to_cells(
             (feats * mask[..., None]).astype(jnp.float32)
         )
@@ -394,19 +350,13 @@ def cell_index(
     labels: jnp.ndarray,
     grid: GridParams,
     neighborhood: int,
-    stats_impl: str = "auto",
 ) -> Optional[_CellIndex]:
     """Public constructor for downstream ops (CCL) that consume single-
-    iteration SLIC labels; returns None when the cell path doesn't apply.
-    stats_impl governs whether segment sums route through the Pallas
-    label-sums kernel ("auto": on TPU) — sharded pipelines pass "xla"."""
+    iteration SLIC labels; returns None when the cell path doesn't apply."""
     h, w = labels.shape
     if not (_use_cell() and _cell_ok(grid, h, w)):
         return None
-    kernel_sums = None if stats_impl == "auto" else stats_impl == "pallas"
-    return _CellIndex(
-        labels, grid, neighborhood // 2, h, w, kernel_sums=kernel_sums
-    )
+    return _CellIndex(labels, grid, neighborhood // 2, h, w)
 
 
 # ----------------------------------------------------------------- seeding
@@ -414,7 +364,7 @@ def cell_index(
 
 def _edge_shift(padded: jnp.ndarray, dy: int, dx: int, r: int, h: int, w: int):
     """Slice view of an edge-padded array displaced by (dy, dx) — clamped
-    indexing as pad+slice (pure VPU; per-pixel gathers serialize on TPU)."""
+    indexing as pad+slice (no per-pixel gather)."""
     start = [r + dy, r + dx] + [0] * (padded.ndim - 2)
     sizes = [h, w] + list(padded.shape[2:])
     return lax.slice(padded, start, [s + z for s, z in zip(start, sizes)])
@@ -456,9 +406,8 @@ def _nasp_gradient(color_f: jnp.ndarray, normals: jnp.ndarray) -> jnp.ndarray:
     for dy in range(-5, 6):
         for dx in range(-5, 6):
             nb = _edge_shift(cpad, dy, dx, 5, h, w)
-            # explicit association: keeps this path bitwise-reproducible by
-            # the fused Pallas kernel (XLA contracts jnp.sum(x*y, -1) into an
-            # FMA chain the kernel cannot portably imitate)
+            # explicit association: a fixed summation order (XLA may
+            # contract jnp.sum(x*y, -1) into an FMA chain)
             g = jnp.sqrt(
                 (
                     jnp.square(color_f[..., 0] - nb[..., 0])
@@ -580,26 +529,11 @@ def _compute_seeds(
     w: int,
     window: int,
     variant: str,
-    grad_impl: str = "auto",
 ) -> jnp.ndarray:
     """Seed sampling; on the sub-grid fast path the gradient is evaluated
     only where the seed windows can read it (bit-identical by construction)."""
-    # fused single-launch gradient on TPU (ops/pallas_gradient.py, bitwise-
-    # equal to the unrolled XLA path below — which is kernel-launch-bound)
-    from kinectdepthmapenhancement_tpu.ops import pallas_gradient
-
-    if grad_impl == "auto":
-        use_pallas = pallas_gradient.available()
-    else:
-        use_pallas = grad_impl == "pallas"
 
     def grad(cf, nm):
-        if use_pallas:
-            return pallas_gradient.seed_gradient(
-                cf,
-                nm if variant == "nasp" else None,
-                interpret=jax.default_backend() != "tpu",
-            )
         if variant == "nasp":
             return _nasp_gradient(cf, nm)
         return _color_gradient(cf)
@@ -732,12 +666,11 @@ def _assign(
         # labels == grid init (cell_fast) or cell-local within the capped
         # neighbourhood (cell_capped): a cell's pixels share the candidate
         # cluster, so the distance computation runs in band space
-        # [rows, bs_y, W] (a bitcast reshape of [H, W] — full 640-lane
-        # vectorisation) with the candidate features pre-expanded to
-        # [rows, 1, W] maps.  Per offset that materialises only a tiny
-        # [rows, W, nf] map (~0.35 MB) instead of a full [H, W, nf] one
-        # (11 MB) — for NASP's 64 offsets this cuts the stage's HBM traffic
-        # ~30x (was the pipeline's largest cost).
+        # [rows, bs_y, W] (a bitcast reshape of [H, W]) with the candidate
+        # features pre-expanded to [rows, 1, W] maps.  Per offset that
+        # materialises only a tiny [rows, W, nf] map (~0.35 MB) instead of a
+        # full [H, W, nf] one (11 MB) — for NASP's 64 offsets this cuts the
+        # stage's device-memory traffic ~30x.
         rows, cls = grid.rows, grid.cols
         bs_y, bs_x = h // rows, w // cls
 
@@ -875,11 +808,11 @@ def _assign(
             new_dist = jnp.where(invalid, 0.0, new_dist)
         return new_labels, new_dist
 
-    if tables.use_mxu():
+    if tables.use_onehot():
         # bulk gather: rid == lab0 + (dy*cols + dx) for in-grid lanes, so a
         # group of offsets is ONE one-hot matmul against the horizontally
-        # concatenated row-shifted tables (per-pixel gathers serialize on
-        # TPU; this runs on the MXU).  Offsets are CHUNKED so the gathered
+        # concatenated row-shifted tables (no per-pixel gather).  Offsets
+        # are CHUNKED so the gathered
         # intermediate stays bounded (~[H, W, chunk*nf], reused across
         # chunks by the allocator) instead of one [H, W, n_off*nf] monster.
         chunk = max(1, 128 // nf)
@@ -957,111 +890,6 @@ def _assign(
 
 
 # ----------------------------------------------------------- cluster stats
-
-
-def _stats_impl_on(params) -> bool:
-    """'auto' enables the fused Pallas NASP kernels on TPU only."""
-    if params.stats_impl == "auto":
-        from kinectdepthmapenhancement_tpu.ops import pallas_nasp
-
-        return pallas_nasp.available()
-    return params.stats_impl == "pallas"
-
-
-def _use_nasp_kernel(idx, params) -> bool:
-    """The fused Pallas cell-sums kernel applies on the cell-local index
-    (single-iteration NASP)."""
-    return isinstance(idx, _CellIndex) and _stats_impl_on(params)
-
-
-def _nasp_sums_kernel(
-    idx, clusters, color_f, points, normals, window_range, params, mode
-) -> jnp.ndarray:
-    """[K, F] cluster sums via ops/pallas_nasp.py (mode "analyze" or
-    "weighted"); the candidate->cluster fold is the same tiny one-hot matmul
-    as the XLA route."""
-    from kinectdepthmapenhancement_tpu.ops import pallas_nasp
-
-    lo, hi = window_range
-    xy = clusters.xy.astype(jnp.float32)
-    if mode == "analyze":
-        fields = xy
-    else:
-        fields = jnp.concatenate([xy, clusters.rgb, clusters.normal], axis=-1)
-    part_flat = pallas_nasp.nasp_cell_sums(
-        idx.labels,
-        color_f,
-        points,
-        normals,
-        fields.reshape(idx.rows, idx.cols, -1),
-        rows=idx.rows,
-        cols=idx.cols,
-        r=idx.r,
-        lo=lo,
-        hi=hi,
-        mode=mode,
-        color_sigma=params.color_sigma,
-        spatial_sigma=params.spatial_sigma,
-        interpret=jax.default_backend() != "tpu",
-    )
-    return tables.segment_sum(part_flat, idx.cand_flat, idx.k, onehot=idx.oh_k)
-
-
-def _nasp_fused_first_iteration(
-    clusters: Clusters,
-    color_f, points, normals,
-    grid: GridParams,
-    params: SLICParams,
-    window_range,
-    h: int,
-    w: int,
-):
-    """Fused Pallas first-iteration NASP: assignment + analyze sums in one
-    kernel launch (ops/pallas_nasp.py::nasp_assign_and_analyze), replacing
-    the XLA band-space assignment (64-offset select chain + candidate
-    expands).  Returns (labels, distance, analyze-updated clusters, idx)."""
-    from kinectdepthmapenhancement_tpu.ops import pallas_nasp
-
-    lo, hi = window_range
-    ws_x, ws_y = _grid_geometry(grid, h, w)
-    s_scale = (ws_x + ws_y) / 2.0
-    total = (
-        params.spatial_sigma + params.color_sigma + params.depth_sigma
-        + params.normal_sigma
-    )
-    cand_fields = jnp.concatenate(
-        [
-            clusters.rgb,
-            clusters.xy.astype(jnp.float32),
-            clusters.center[:, 2:3],
-            clusters.normal,
-        ],
-        axis=-1,
-    ).reshape(grid.rows, grid.cols, 9)
-    labels, distance, part_flat = pallas_nasp.nasp_assign_and_analyze(
-        color_f,
-        points,
-        normals,
-        cand_fields,
-        rows=grid.rows,
-        cols=grid.cols,
-        r=4,
-        lo=lo,
-        hi=hi,
-        w_col=(params.color_sigma / total) ** 2,
-        w_spa=(params.spatial_sigma / total) ** 2,
-        w_dep=(params.depth_sigma / total) ** 2,
-        w_nor=(params.normal_sigma / total) ** 2,
-        s_scale=s_scale,
-        apply_invalid=(
-            params.depth_sigma != 0.0 or params.normal_sigma != 0.0
-        ),
-        interpret=jax.default_backend() != "tpu",
-    )
-    idx = _CellIndex(labels, grid, 4, h, w)
-    sums = tables.segment_sum(part_flat, idx.cand_flat, idx.k, onehot=idx.oh_k)
-    new_clusters = _nasp_analyze_post(sums, clusters, points, h, w)
-    return labels, distance, new_clusters, idx
 
 
 def _window_mask(
@@ -1157,8 +985,7 @@ def _update_dasp(
 
 
 def _update_nasp_analyze(
-    idx, labels, clusters, color_f, points, normals, grid, params,
-    window_range, h, w
+    idx, labels, clusters, color_f, points, normals, grid, window_range, h, w
 ) -> Clusters:
     """NASP plain stats (analyzeClusters_NASP, NormalAdaptiveSuperpixel.cu:356-685).
 
@@ -1167,35 +994,23 @@ def _update_nasp_analyze(
     pixel has valid depth, else the mean of accepted points (reprojection
     fallback dead, bug (c)).  Cluster normal = UNnormalised mean."""
     lo, hi = window_range
-    if _use_nasp_kernel(idx, params):
-        sums = _nasp_sums_kernel(
-            idx, clusters, color_f, points, normals, window_range, params,
-            "analyze",
-        )
-    else:
-        mask = _window_mask(idx, labels, clusters, lo, hi)
-        v = jnp.broadcast_to(jnp.arange(h, dtype=jnp.float32)[:, None], (h, w))
-        u = jnp.broadcast_to(jnp.arange(w, dtype=jnp.float32)[None, :], (h, w))
-        ones = jnp.ones((h, w), jnp.float32)
-        accept = (points[..., 2] > VALID_DEPTH_MM) & _normal_valid_or(normals)
-        acc = accept.astype(jnp.float32)[..., None]
-        feats = jnp.concatenate(
-            [
-                color_f,                           # 0:3
-                jnp.stack([u, v, ones], axis=-1),  # 3:6
-                points * acc,                      # 6:9
-                normals * acc,                     # 9:12
-                acc,                               # 12
-            ],
-            axis=-1,
-        )
-        sums = idx.segment_sum(feats, mask)
-    return _nasp_analyze_post(sums, clusters, points, h, w)
-
-
-def _nasp_analyze_post(sums, clusters, points, h, w) -> Clusters:
-    """Post-processing of the analyze sums (shared by the XLA, Pallas-stats
-    and fused assignment+stats routes)."""
+    mask = _window_mask(idx, labels, clusters, lo, hi)
+    v = jnp.broadcast_to(jnp.arange(h, dtype=jnp.float32)[:, None], (h, w))
+    u = jnp.broadcast_to(jnp.arange(w, dtype=jnp.float32)[None, :], (h, w))
+    ones = jnp.ones((h, w), jnp.float32)
+    accept = (points[..., 2] > VALID_DEPTH_MM) & _normal_valid_or(normals)
+    acc = accept.astype(jnp.float32)[..., None]
+    feats = jnp.concatenate(
+        [
+            color_f,                           # 0:3
+            jnp.stack([u, v, ones], axis=-1),  # 3:6
+            points * acc,                      # 6:9
+            normals * acc,                     # 9:12
+            acc,                               # 12
+        ],
+        axis=-1,
+    )
+    sums = idx.segment_sum(feats, mask)
     size = sums[:, 5]
     nz = size > 0
     safe = jnp.maximum(size, 1.0)
@@ -1237,51 +1052,45 @@ def _update_nasp_weighted(
     pixels with z>50, valid normal, and dot(n, n_cluster) in (0.5, 1]
     (acos(clamped dot) < pi/3)."""
     lo, hi = window_range
-    if _use_nasp_kernel(idx, params):
-        sums = _nasp_sums_kernel(
-            idx, clusters, color_f, points, normals, window_range, params,
-            "weighted",
+    v = jnp.broadcast_to(jnp.arange(h, dtype=jnp.float32)[:, None], (h, w))
+    u = jnp.broadcast_to(jnp.arange(w, dtype=jnp.float32)[None, :], (h, w))
+    g = idx.gather(
+        jnp.concatenate(
+            [clusters.rgb, clusters.xy.astype(jnp.float32), clusters.normal], -1
         )
-    else:
-        v = jnp.broadcast_to(jnp.arange(h, dtype=jnp.float32)[:, None], (h, w))
-        u = jnp.broadcast_to(jnp.arange(w, dtype=jnp.float32)[None, :], (h, w))
-        g = idx.gather(
-            jnp.concatenate(
-                [clusters.rgb, clusters.xy.astype(jnp.float32), clusters.normal], -1
-            )
-        )
-        c_rgb, c_xy, c_n = g[..., 0:3], g[..., 3:5], g[..., 5:8]
-        mask = _window_mask(idx, labels, clusters, lo, hi, cxy=c_xy)
+    )
+    c_rgb, c_xy, c_n = g[..., 0:3], g[..., 3:5], g[..., 5:8]
+    mask = _window_mask(idx, labels, clusters, lo, hi, cxy=c_xy)
 
-        cdiff = jnp.sum(jnp.square(color_f - c_rgb), axis=-1)
-        cfilt = jnp.exp(-cdiff / (2.0 * params.color_sigma**2))
-        sdiff = jnp.square(u - c_xy[..., 0]) + jnp.square(v - c_xy[..., 1])
-        sfilt = jnp.exp(-sdiff / (2.0 * params.spatial_sigma**2))
-        wgt = (cfilt * sfilt)[..., None]
+    cdiff = jnp.sum(jnp.square(color_f - c_rgb), axis=-1)
+    cfilt = jnp.exp(-cdiff / (2.0 * params.color_sigma**2))
+    sdiff = jnp.square(u - c_xy[..., 0]) + jnp.square(v - c_xy[..., 1])
+    sfilt = jnp.exp(-sdiff / (2.0 * params.spatial_sigma**2))
+    wgt = (cfilt * sfilt)[..., None]
 
-        dot = jnp.sum(normals * c_n, axis=-1)
-        dclamp = jnp.maximum(dot, 0.0)
-        accept = (
-            (points[..., 2] > VALID_DEPTH_MM)
-            & _normal_valid_or(normals)
-            & (dclamp > 0.5)
-            & (dclamp <= 1.0)
-        )
-        acc = accept.astype(jnp.float32)[..., None]
+    dot = jnp.sum(normals * c_n, axis=-1)
+    dclamp = jnp.maximum(dot, 0.0)
+    accept = (
+        (points[..., 2] > VALID_DEPTH_MM)
+        & _normal_valid_or(normals)
+        & (dclamp > 0.5)
+        & (dclamp <= 1.0)
+    )
+    acc = accept.astype(jnp.float32)[..., None]
 
-        feats = jnp.concatenate(
-            [
-                color_f * wgt,                                  # 0:3
-                jnp.stack([u, v], axis=-1) * wgt,               # 3:5
-                wgt,                                            # 5 weight sum
-                points * acc,                                   # 6:9
-                normals * acc,                                  # 9:12
-                dclamp[..., None] * acc,                        # 12 variance sum
-                acc,                                            # 13 num accepted
-            ],
-            axis=-1,
-        )
-        sums = idx.segment_sum(feats, mask)
+    feats = jnp.concatenate(
+        [
+            color_f * wgt,                                  # 0:3
+            jnp.stack([u, v], axis=-1) * wgt,               # 3:5
+            wgt,                                            # 5 weight sum
+            points * acc,                                   # 6:9
+            normals * acc,                                  # 9:12
+            dclamp[..., None] * acc,                        # 12 variance sum
+            acc,                                            # 13 num accepted
+        ],
+        axis=-1,
+    )
+    sums = idx.segment_sum(feats, mask)
     wsum = sums[:, 5]
     nz = wsum != 0.0
     safe = jnp.where(nz, wsum, 1.0)
@@ -1359,8 +1168,7 @@ def segment(
 
     if seeds is None:
         seeds = _compute_seeds(
-            color_f, normals, grid, h, w, seed_window, variant,
-            grad_impl=params.grad_impl,
+            color_f, normals, grid, h, w, seed_window, variant
         )
     else:
         seeds = jnp.asarray(seeds, jnp.int32)
@@ -1374,27 +1182,6 @@ def segment(
 
     def iteration(state, first: bool):
         labels, distance, clusters = state
-        if (
-            first
-            and cell_fast
-            and variant == "nasp"
-            and _stats_impl_on(params)
-        ):
-            # fully fused first iteration: assignment + analyze sums in one
-            # Pallas launch, weighted sums in a second
-            labels, distance, clusters, idx = _nasp_fused_first_iteration(
-                clusters, color_f, points, normals, grid, params,
-                window_range, h, w,
-            )
-            clusters = _update_nasp_weighted(
-                idx, labels, clusters, color_f, points, normals, grid,
-                params, window_range, h, w,
-            )
-            return labels, distance, clusters
-        ks = (
-            None if params.stats_impl == "auto"
-            else params.stats_impl == "pallas"
-        )
 
         def update_with(idx, labels, clusters):
             if variant == "sp":
@@ -1407,7 +1194,7 @@ def segment(
                     h, w,
                 )
             clusters = _update_nasp_analyze(
-                idx, labels, clusters, color_f, points, normals, grid, params,
+                idx, labels, clusters, color_f, points, normals, grid,
                 window_range, h, w,
             )
             return _update_nasp_weighted(
@@ -1454,7 +1241,7 @@ def segment(
                 )
 
             def upd_cell(clusters):
-                idx = _CellIndex(labels, grid, cap, h, w, kernel_sums=ks)
+                idx = _CellIndex(labels, grid, cap, h, w)
                 return update_with(idx, labels, clusters)
 
             def upd_global(clusters):
@@ -1479,9 +1266,7 @@ def segment(
         # cluster updates; after the first sweep labels come from the cell's
         # candidate set, so the index is cell-local there
         if first and cell_fast:
-            idx = _CellIndex(
-                labels, grid, neighborhood // 2, h, w, kernel_sums=ks
-            )
+            idx = _CellIndex(labels, grid, neighborhood // 2, h, w)
         else:
             idx = _GlobalIndex(labels, grid.num_clusters)
         clusters = update_with(idx, labels, clusters)

@@ -2,9 +2,9 @@
 
 The reference implements every stencil (JBF, MRF, ERS enhancement, projection
 bilateral, mrf_optimization) as a per-thread loop over a small window with an
-in-bounds check (e.g. JointBilateralFilter.cu:17-21).  On TPU the equivalent
+in-bounds check (e.g. JointBilateralFilter.cu:17-21).  Here the equivalent
 is a statically unrolled sum of shifted copies of a padded image: XLA fuses
-the whole window into one VPU loop, and the pad value doubles as the
+the whole window into one loop, and the pad value doubles as the
 out-of-bounds sentinel (invalid depth 0 is rejected by the z > 50 test, so
 padding with 0 reproduces the bounds check exactly).
 """

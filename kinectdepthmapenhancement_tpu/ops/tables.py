@@ -1,21 +1,22 @@
-"""Cluster-table access primitives with an MXU fast path.
+"""Cluster-table access primitives: gathers and segment sums as one-hot products.
 
 The framework constantly moves data between the image plane [H, W] and the
 ~300-row cluster tables [K, F]: per-pixel gathers (table[labels]) and
-per-cluster reductions (segment sums).  XLA lowers both to gather/scatter on
-TPU, which serialize and dominated the profile (~100x slower than the maths).
+per-cluster reductions (segment sums).  A one-hot label matrix P [N, K]
+(exact 0/1 rows, all-zero for invalid labels) turns
 
-TPU-native replacement: a one-hot label matrix P [N, K] (exact 0/1 rows,
-all-zero for invalid labels) turns
     gather:       table[labels]  ==  P @ table
     segment sum:  sum per label  ==  P.T @ feats
-both MXU matmuls.  With float32 operands and HIGHEST precision (bf16x6
-decomposition) the products are f32-faithful; since every P row has at most
-a single 1, the gather result equals the table value to the last ulp.
 
-On CPU (tests/oracle parity) the primitives fall back to jnp.take /
-jax.ops.segment_sum, which are exact and fast there.  `force_mode` lets
-tests pin either path.
+into matrix products.  With float32 operands at Precision.HIGHEST the
+products are true f32: since every P row has at most a single 1, a gathered
+value equals the table value to the last bit, and a sum is an f32 sum whose
+order does not change from run to run (native scatter-adds use atomics on
+the GPU, whose order does).
+
+`core/device.py::onehot_tables` picks this route off the CPU; on the CPU
+(tests/oracle parity) the primitives use jnp.take / jax.ops.segment_sum,
+which are exact and fast there.  `force_mode` lets tests pin either route.
 """
 
 from __future__ import annotations
@@ -25,21 +26,21 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 
-_FORCE: Optional[str] = None  # None | "mxu" | "reference"
+from kinectdepthmapenhancement_tpu.core import device
+
+_FORCE: Optional[str] = None  # None | "onehot" | "reference"
 
 
 def force_mode(mode: Optional[str]) -> None:
     global _FORCE
-    assert mode in (None, "mxu", "reference")
+    assert mode in (None, "onehot", "reference")
     _FORCE = mode
 
 
-def use_mxu() -> bool:
-    if _FORCE == "mxu":
-        return True
-    if _FORCE == "reference":
-        return False
-    return jax.default_backend() != "cpu"
+def use_onehot() -> bool:
+    if _FORCE is not None:
+        return _FORCE == "onehot"
+    return device.onehot_tables()
 
 
 def one_hot(labels: jnp.ndarray, k: int) -> jnp.ndarray:
@@ -52,27 +53,16 @@ def one_hot(labels: jnp.ndarray, k: int) -> jnp.ndarray:
     )
 
 
-# NOTE: rounds 1-4 exposed a split3() helper here (f32 -> three exact bf16
-# parts) and summed three bf16 dots per table matmul.  REMOVED in round 5:
-# the pattern miscompiles on current XLA (see _dot below) — do not
-# reintroduce it; use _dot's f32 HIGHEST path.
-
-
 def _dot(p: jnp.ndarray, t: jnp.ndarray, contract_p: int) -> jnp.ndarray:
-    """Exact one-hot matmul: p (0/1) x t (f32) -> f32 with no precision loss
+    """Exact one-hot product: p (0/1) x t (f32) -> f32 with no precision loss
     beyond f32 accumulation.  contract_p: which axis of p contracts (1 for
     gather, 0 for segment sum).
 
-    f32 x f32 at Precision.HIGHEST (6-pass bf16 emulation on the MXU) —
-    measured EXACT for gathers (abs diff 0.0 vs the table) and f32-rounding-
-    level for sums.  The previous route (3 dots of exact bf16 split parts,
-    summed in f32) is mathematically exact but MISCOMPILES on current XLA:
-    the narrow-output dots lower through a fused convolution path that
-    re-merges the parts at bf16, silently rounding every gathered table
-    value to 8 mantissa bits (~0.3% on mm-scale depths) and costing
-    segment sums ~2^-8-relative error (round-5 finding).  The CPU backend
-    does not reproduce the miscompile, so the guard is the on-chip check
-    scripts/check_tables_tpu.py — run it after any XLA or tables change."""
+    One f32 x f32 dot at Precision.HIGHEST.  Do not split t into bf16 parts
+    and sum several bf16 dots: XLA may fuse the parts back together at bf16,
+    silently rounding every gathered value to 8 mantissa bits, and the CPU
+    backend does not reproduce that.  `chip_smoke.py` checks gathers for
+    exactness and sums against a float64 reference on the card."""
     dn = (((contract_p,), (0,)), ((), ()))
     return jax.lax.dot_general(
         p.astype(jnp.float32),
@@ -89,7 +79,7 @@ def gather(table: jnp.ndarray, labels: jnp.ndarray, *, onehot: Optional[jnp.ndar
     shape = labels.shape
     squeeze = table.ndim == 1
     t2 = table[:, None] if squeeze else table
-    if use_mxu():
+    if use_onehot():
         p = one_hot(labels, t2.shape[0]) if onehot is None else onehot
         out = _dot(p, t2.astype(jnp.float32), contract_p=1)
         out = out.reshape(shape + (t2.shape[1],))
@@ -104,11 +94,10 @@ def segment_sum(feats: jnp.ndarray, labels: jnp.ndarray, k: int, *, onehot=None)
     """Per-cluster sums of feats [..., F] grouped by labels [...] -> [K, F].
     Invalid labels (<0) are dropped.
 
-    MXU path: P.T (bf16 one-hot) x feats, with feats split into three exact
-    bf16 parts — per-part products are exact, accumulation is f32, matching
-    the reference path to f32 rounding."""
+    One-hot route: P.T x feats as one f32 x f32 dot at Precision.HIGHEST
+    (see _dot) — equal to the reference route up to f32 summation order."""
     f = feats.reshape(-1, feats.shape[-1]).astype(jnp.float32)
-    if use_mxu():
+    if use_onehot():
         p = one_hot(labels, k) if onehot is None else onehot
         return _dot(p, f, contract_p=0)
     flat = jnp.where(labels.reshape(-1) >= 0, labels.reshape(-1), k)

@@ -1,7 +1,7 @@
 """Manual halo exchange for spatially tiled stencil ops (shard_map path).
 
-The reference's stencils read up to 3 px past the thread block; on a TPU mesh
-the analog is exchanging boundary strips between neighbouring shards over ICI
+The reference's stencils read up to 3 px past the thread block; on a device
+mesh the analog is exchanging boundary strips between neighbouring shards
 with jax.lax.ppermute before running the stencil locally (SURVEY.md §5).
 
 `exchange_width` pads a [H, W_shard, ...] block with `radius` columns from

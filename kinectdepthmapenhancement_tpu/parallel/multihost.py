@@ -1,11 +1,11 @@
 """Multi-host execution: process initialisation + data-parallel streaming.
 
-The reference is single-process/single-GPU (SURVEY.md §2); the TPU-native
-scaling story (SURVEY.md §5 distributed row) is:
+The reference is single-process/single-GPU (SURVEY.md §2); the scaling
+story (SURVEY.md §5 distributed row) is:
 
-  * ICI (within a host/slice): spatial tiling + replicated cluster tables —
+  * within a host: spatial tiling + replicated cluster tables —
     parallel/sharding.py, parallel/stencil_shard.py;
-  * DCN (across hosts): frames are embarrassingly parallel, so the batch
+  * across hosts: frames are embarrassingly parallel, so the batch
     axis spans processes.  Each process feeds its local shard of every
     global batch; collectives only materialise for metrics reductions.
 
@@ -16,7 +16,7 @@ builds the ('data', 'x') mesh over ALL devices (local + remote);
 models/streaming.py's per-chunk device put.
 
 All of it degrades gracefully to a single process (the only thing this
-repo's CI can execute — a real pod run needs N processes launched with
+repo's CI can execute — a real multi-host run needs N processes launched with
 coordinator env vars, which the test suite fakes with the 8-virtual-device
 CPU mesh).
 """

@@ -4,95 +4,76 @@ Strategy (SURVEY.md §5/§7): frames are data-parallel over 'data'; the image
 plane is tiled over 'x' (width axis).  The pipelines are pure jnp programs
 with static shapes, so XLA GSPMD partitions them from input shardings alone —
 stencil pads become halo exchanges, segment-sums over the 300-cluster tables
-become partial sums + AllReduce over ICI, and the tiny cluster-table
+become partial sums + AllReduce between devices, and the tiny cluster-table
 fixpoints replicate.  A hand-written shard_map halo-exchange path exists for
 the production JBF stencil (parallel/stencil_shard.py, built on
-parallel/halo.py) — bitwise-equal to the unsharded op and the only route for
-running the Pallas kernels on spatially tiled inputs.
+parallel/halo.py) — bitwise-equal to the unsharded op.
 
-`dryrun(n)` is the driver hook: builds an n-device mesh, jits the FULL
-batched KDE step with real input shardings and runs one step on tiny shapes.
+`dryrun(n)` builds an n-device mesh, jits the FULL batched KDE step with
+real input shardings and runs one step on tiny shapes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from kinectdepthmapenhancement_tpu.core.camera import Intrinsics, default_kinect_intrinsics
 from kinectdepthmapenhancement_tpu.core.config import GridParams, KDEConfig
-from kinectdepthmapenhancement_tpu.models.pipelines import kde_pipeline
+from kinectdepthmapenhancement_tpu.models.pipelines import KDEResult, kde_pipeline
 from kinectdepthmapenhancement_tpu.parallel.mesh import make_mesh
 
 
-def disable_pallas(cfg: KDEConfig) -> KDEConfig:
-    """cfg with every Pallas kernel replaced by its XLA-path twin (bitwise-
-    equal semantics).  Required under GSPMD spatial sharding: a pallas_call
-    is a black box to the partitioner — with a width-sharded operand XLA
-    either fails to propagate a sharding or falls back to full replication
-    (all-gather + redundant compute), so the sharded step must never reach
-    one.  The XLA paths are ordinary jnp programs GSPMD partitions fine."""
-    return dataclasses.replace(
-        cfg,
-        normals=dataclasses.replace(cfg.normals, cov_impl="xla", dt_impl="xla"),
-        nasp=dataclasses.replace(cfg.nasp, grad_impl="xla", stats_impl="xla"),
+def _result_shardings(mesh: Mesh) -> KDEResult:
+    """Output shardings of the spatial route: image maps keep the input's
+    (batch, width) tiling, the [B, K] cluster tables shard the batch only."""
+    img = NamedSharding(mesh, P("data", None, "x"))
+    pts = NamedSharding(mesh, P("data", None, "x", None))
+    tab = NamedSharding(mesh, P("data"))
+    return KDEResult(
+        optimized_points=pts, plane_fitted=pts, jbf_depth=img, normals=pts,
+        nasp_labels=img, merged_labels=img, merged_variance=tab,
+        merged_sizes=tab,
     )
 
 
 def sharded_kde_step(mesh: Mesh, intr: Intrinsics, cfg: KDEConfig):
-    """Returns a jitted batched KDE step [B,H,W]x[B,H,W,3] -> [B,H,W,3] with
-    batch sharded over 'data' and image width over 'x'.
+    """Returns a jitted batched KDE step [B,H,W] x [B,H,W,3] -> KDEResult
+    (every field batched over B) with batch sharded over 'data' and image
+    width over 'x'.
 
-    Two regimes (the Pallas/GSPMD interaction is handled explicitly):
+    Two regimes:
       * spatial tiling ('x' > 1): GSPMD partitions the jnp pipeline from the
-        input shardings; the Pallas kernels are force-disabled (see
-        disable_pallas) so the partitioner never meets an opaque kernel.
+        input shardings.
       * pure data parallelism ('x' == 1): shard_map over 'data' — each
-        device runs the complete pipeline on its local frames (zero
-        cross-device collectives), so the Pallas fast paths stay enabled
-        and see plain local arrays."""
-    spatial = mesh.shape.get("x", 1) > 1
-    if spatial:
-        cfg = disable_pallas(cfg)
-        depth_sharding = NamedSharding(mesh, P("data", None, "x"))
-        color_sharding = NamedSharding(mesh, P("data", None, "x", None))
-        out_sharding = NamedSharding(mesh, P("data", None, "x", None))
+        device runs the complete pipeline on its local frames, with zero
+        cross-device collectives."""
 
-        def step(depth_b, color_b):
-            return jax.vmap(
-                lambda d, c: kde_pipeline(d, c, intr, cfg).optimized_points
-            )(depth_b, color_b)
-
-        return jax.jit(
-            step,
-            in_shardings=(depth_sharding, color_sharding),
-            out_shardings=out_sharding,
+    def step(depth_b, color_b):
+        return jax.vmap(lambda d, c: kde_pipeline(d, c, intr, cfg))(
+            depth_b, color_b
         )
 
-    try:  # jax >= 0.8
-        from jax import shard_map
-    except ImportError:  # older spelling
-        from jax.experimental.shard_map import shard_map
-
-    def local_step(depth_b, color_b):
-        return jax.vmap(
-            lambda d, c: kde_pipeline(d, c, intr, cfg).optimized_points
-        )(depth_b, color_b)
-
+    if mesh.shape.get("x", 1) > 1:
+        return jax.jit(
+            step,
+            in_shardings=(
+                NamedSharding(mesh, P("data", None, "x")),
+                NamedSharding(mesh, P("data", None, "x", None)),
+            ),
+            out_shardings=_result_shardings(mesh),
+        )
     return jax.jit(
         shard_map(
-            local_step,
+            step,
             mesh=mesh,
             in_specs=(P("data", None, None), P("data", None, None, None)),
-            out_specs=P("data", None, None, None),
-            # the Pallas kernels' out_shapes carry no varying-mesh-axes
-            # metadata, which trips jax's vma check inside shard_map
-            check_vma=False,
+            out_specs=P("data"),
         )
     )
 
@@ -114,8 +95,7 @@ def dryrun(n_devices: int) -> None:
     color = jnp.asarray(rng.integers(0, 255, size=(batch, h, w, 3), dtype=np.uint8))
 
     step = sharded_kde_step(mesh, intr, cfg)
-    out = step(depth, color)
-    jax.block_until_ready(out)
+    out = jax.block_until_ready(step(depth, color).optimized_points)
     assert out.shape == (batch, h, w, 3)
 
     # output parity vs an unsharded single-device run (same inputs): GSPMD

@@ -1,10 +1,9 @@
 """Production stencils under explicit shard_map halo exchange.
 
 GSPMD partitions the jnp pipelines automatically (parallel/sharding.py), but
-an explicitly shard_mapped stencil gives control over WHAT crosses ICI: one
-ppermute of boundary strips per input instead of whatever the partitioner
-infers, and it is the only way to run the Pallas kernels on spatially tiled
-inputs (a Pallas call inside shard_map sees a plain local block).
+an explicitly shard_mapped stencil gives control over WHAT crosses between
+devices: one ppermute of boundary strips per input instead of whatever the
+partitioner infers.
 
 `jbf_sharded` is the production route for the joint bilateral filter at
 spatial > 1 (JointBilateralFilter.cu:4-83 semantics, identical to
@@ -27,19 +26,15 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-
-try:  # jax >= 0.8
-    from jax import shard_map
-except ImportError:  # older spelling
-    from jax.experimental.shard_map import shard_map
 
 from kinectdepthmapenhancement_tpu.core.config import JBFParams
 from kinectdepthmapenhancement_tpu.ops import bilateral
 from kinectdepthmapenhancement_tpu.parallel import halo
 
 
-def _jbf_local(depth_blk, color_blk, p: JBFParams, axis: str, impl: str):
+def _jbf_local(depth_blk, color_blk, p: JBFParams, axis: str):
     """Per-shard JBF body: exchange halos, filter, slice the core."""
     rg = p.guide_diameter // 2
     rj = p.window // 2
@@ -54,27 +49,14 @@ def _jbf_local(depth_blk, color_blk, p: JBFParams, axis: str, impl: str):
     guide = jax.lax.slice_in_dim(guide, rg, rg + ws + 2 * rj, axis=1)
 
     dpad = halo.exchange_width(depth_blk, rj, axis)  # zeros at global edges
-    if impl == "pallas":
-        from kinectdepthmapenhancement_tpu.ops.pallas_bilateral import jbf_pallas
-
-        h = dpad.shape[0]
-        tile = 48
-        hp = -(-h // tile) * tile
-        dp = jnp.pad(dpad, ((0, hp - h), (0, 0)))
-        gp = jnp.pad(guide, ((0, hp - h), (0, 0), (0, 0)))
-        # off-TPU the kernel runs in interpret mode (CPU-mesh tests)
-        out = jbf_pallas(
-            dp, gp, p, tile=tile, interpret=jax.default_backend() != "tpu"
-        )[:h]
-    else:
-        out = bilateral._jbf_core(
-            dpad,
-            guide,
-            window=p.window,
-            spatial_sigma=p.spatial_sigma,
-            color_sigma=p.color_sigma,
-            depth_sigma=p.depth_sigma,
-        )
+    out = bilateral._jbf_core(
+        dpad,
+        guide,
+        window=p.window,
+        spatial_sigma=p.spatial_sigma,
+        color_sigma=p.color_sigma,
+        depth_sigma=p.depth_sigma,
+    )
     return jax.lax.slice_in_dim(out, rj, rj + ws, axis=1)
 
 
@@ -85,22 +67,15 @@ def jbf_sharded(
     p: JBFParams = JBFParams(),
     *,
     axis: str = "x",
-    impl: str = "xla",
 ):
     """Joint bilateral filter with the image width tiled over mesh axis
     `axis`.  depth [H, W] f32 mm, color [H, W, 3] u8; W must divide by the
-    axis size.  impl="pallas" runs the fused VMEM kernel per shard (TPU)."""
-    body = functools.partial(_jbf_local, p=p, axis=axis, impl=impl)
-    kwargs = {}
-    if impl == "pallas":
-        # a pallas_call's out_shape carries no varying-mesh-axes metadata, so
-        # jax's vma check cannot see through it inside shard_map
-        kwargs["check_vma"] = False
+    axis size."""
+    body = functools.partial(_jbf_local, p=p, axis=axis)
     fn = shard_map(
         body,
         mesh=mesh,
         in_specs=(P(None, axis), P(None, axis, None)),
         out_specs=P(None, axis),
-        **kwargs,
     )
     return fn(depth, color)

@@ -108,7 +108,7 @@ def point_cloud(
 
 
 def save_ply(path: str, cloud: np.ndarray) -> None:
-    """Write an [N, 6] xyzrgb cloud as ASCII PLY — the TPU-host analog of
+    """Write an [N, 6] xyzrgb cloud as ASCII PLY — the host-side analog of
     the reference's PCL 6-viewport visualisation / pcd dumps
     (main.cpp:362-413, Kinect.cpp SavePointcloud)."""
     n = cloud.shape[0]

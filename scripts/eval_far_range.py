@@ -14,10 +14,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from kinectdepthmapenhancement_tpu.core import device
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+device.enable_compile_cache()
 
 
 def main() -> None:

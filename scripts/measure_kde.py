@@ -9,8 +9,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from kinectdepthmapenhancement_tpu.core import device
+
+device.require_gpu()
+device.enable_compile_cache()
 
 import jax.numpy as jnp
 import numpy as np

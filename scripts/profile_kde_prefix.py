@@ -17,8 +17,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from kinectdepthmapenhancement_tpu.core import device
+
+device.require_gpu()
+device.enable_compile_cache()
 
 from kinectdepthmapenhancement_tpu.core.camera import (
     default_kinect_intrinsics,

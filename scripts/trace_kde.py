@@ -1,52 +1,54 @@
-"""Capture a jax.profiler device trace of the KDE pipeline (SURVEY.md §5).
+"""Capture a jax.profiler device trace of the KDE pipeline at 640x480 on a GPU.
 
-Writes a TensorBoard-loadable trace to --out (default /tmp/kde_trace); the
-per-stage jax.named_scope annotations in models/pipelines.py label the HLO
-ops so stage costs are attributable in the trace viewer.
+Writes the trace to --out (default: traces/kde in the checkout) together with
+the optimized HLO of the traced executable (hlo.txt), which
+scripts/trace_aggregate.py uses to map each kernel to its jax.named_scope
+stage (models/pipelines.py).  The step is `__graft_entry__.entry()`,
+compiled without command buffers so that every kernel is its own event.
 
-Usage: python scripts/trace_kde.py [--out DIR] [--cpu]
+Usage: python scripts/trace_kde.py [--out DIR] [--runs 3]
 """
 
 import os
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+# one trace event per kernel: with XLA's command buffers (CUDA graphs) the
+# whole executable shows as a single event
+os.environ["XLA_FLAGS"] = (
+    os.environ.get("XLA_FLAGS", "") + " --xla_gpu_enable_command_buffer="
+).strip()
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-if "--cpu" in sys.argv:
-    jax.config.update("jax_platforms", "cpu")
+from kinectdepthmapenhancement_tpu.core import device
+
+device.require_gpu()
+device.enable_compile_cache()
 
 import jax.numpy as jnp
 
-from kinectdepthmapenhancement_tpu.core.camera import default_kinect_intrinsics
-from kinectdepthmapenhancement_tpu.core.config import KDEConfig
-from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
-from kinectdepthmapenhancement_tpu.models.pipelines import kde_pipeline
+import __graft_entry__
 
 
 def main() -> None:
-    out = "/tmp/kde_trace"
+    out = os.path.join(ROOT, "traces", "kde")
     if "--out" in sys.argv:
         out = sys.argv[sys.argv.index("--out") + 1]
+    runs = int(sys.argv[sys.argv.index("--runs") + 1]) if "--runs" in sys.argv else 3
 
-    h, w = (480, 640) if "--cpu" not in sys.argv else (96, 128)
-    intr = default_kinect_intrinsics(w, h)
-    color_np, noisy_np, _ = make_noisy_scene(h, w, intr, seed=0)
-    cfg = KDEConfig()
-
-    depth = jnp.asarray(noisy_np)
-    color = jnp.asarray(color_np)
-    step = jax.jit(lambda d, c: kde_pipeline(d, c, intr, cfg).optimized_points)
-    jax.block_until_ready(step(depth, color))  # compile outside the trace
+    fn, (depth, color) = __graft_entry__.entry()
+    compiled = jax.jit(fn).lower(depth, color).compile()
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "hlo.txt"), "w") as f:
+        f.write(compiled.as_text())
+    jax.block_until_ready(compiled(depth, color))  # warm outside the trace
 
     with jax.profiler.trace(out):
-        for i in range(3):
-            # unique inputs defeat the runtime's (executable, input) memo
-            jax.block_until_ready(step(depth + jnp.float32(i) * 1e-3, color))
-    print(f"trace written to {out} (load with tensorboard --logdir {out})")
+        for i in range(runs):
+            jax.block_until_ready(compiled(depth + jnp.float32(i) * 1e-3, color))
+    print(f"trace of {runs} runs written to {out}")
 
 
 if __name__ == "__main__":

@@ -89,3 +89,51 @@ def cached(
     np.savez_compressed(tmp, __key__=np.asarray(key), **out)
     os.replace(tmp, path)
     return out
+
+
+def _oracle_inputs(noisy, color, intr, grid, **extra):
+    return dict(
+        depth=noisy.astype(np.float64), color=color, fx=intr.fx, fy=intr.fy,
+        cx=intr.cx, cy=intr.cy, rows=grid.rows, cols=grid.cols, **extra,
+    )
+
+
+def kde_oracle(name, noisy, color, intr, grid, max_fit_residual=0.0025):
+    """Composed KDE oracle outputs (oracle_pipeline.kde_oracle), cached."""
+
+    def compute():
+        import oracle_pipeline
+
+        return {
+            k: np.asarray(v)
+            for k, v in oracle_pipeline.kde_oracle(
+                noisy.astype(np.float64), color, intr.fx, intr.fy, intr.cx,
+                intr.cy, rows=grid.rows, cols=grid.cols,
+                max_fit_residual=max_fit_residual,
+            ).items()
+        }
+
+    return cached(
+        name,
+        _oracle_inputs(
+            noisy, color, intr, grid, max_fit_residual=max_fit_residual
+        ),
+        compute,
+    )
+
+
+def rgbf_oracle(name, noisy, color, intr, grid):
+    """Composed RGBF oracle outputs (oracle_pipeline.rgbf_oracle), cached."""
+
+    def compute():
+        import oracle_pipeline
+
+        return {
+            k: np.asarray(v)
+            for k, v in oracle_pipeline.rgbf_oracle(
+                noisy.astype(np.float64), color, intr.fx, intr.fy, intr.cx,
+                intr.cy, rows=grid.rows, cols=grid.cols,
+            ).items()
+        }
+
+    return cached(name, _oracle_inputs(noisy, color, intr, grid), compute)

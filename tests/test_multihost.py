@@ -1,4 +1,4 @@
-"""parallel/multihost.py coverage (VERDICT r2: "zero tests cover multihost"):
+"""parallel/multihost.py coverage:
 initialize() env parsing incl. the single-process fallback, global_mesh
 shape, and local_batch_to_global's single-process sharded device put."""
 
@@ -81,7 +81,7 @@ def test_local_batch_to_global_single_process():
 
 
 def test_two_process_distributed_run():
-    """VERDICT r3 #3: an ACTUAL multi-process run — two subprocesses, a real
+    """An ACTUAL multi-process run — two subprocesses, a real
     coordinator, gloo CPU collectives, a cross-process mean — not a
     monkeypatched initialize.  See tests/multihost_worker.py."""
     import os

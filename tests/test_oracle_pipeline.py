@@ -3,10 +3,8 @@
 The per-op oracles are composed into full CPU KDE / RGBF pipelines
 (oracle_pipeline.py) and compared end-to-end against the jitted device
 pipelines, covering the inter-stage contracts (units, sentinels, label
-handoffs).  Tolerances: labels must be EXACT (integer handoffs); depths
-accumulate f32-vs-f64 differences through 4+ filter stages, so value
-comparisons use a small mm tolerance plus agreement-fraction asserts at the
-few pixels where a gate flips on a f32 boundary.
+handoffs).  The tolerances live in utils/parity.py, shared with the on-card
+smoke run (chip_smoke.py).
 
 The real-frame test drives the KDE pipeline with the reference's only
 bundled real data (/root/reference/input/color.jpg, main.cpp:146-163), with
@@ -22,7 +20,6 @@ import jax
 import jax.numpy as jnp
 
 import golden
-import oracle_pipeline
 from kinectdepthmapenhancement_tpu.core.camera import (
     default_kinect_intrinsics,
     projective_to_real,
@@ -31,6 +28,7 @@ from kinectdepthmapenhancement_tpu.core.config import GridParams, KDEConfig, RGB
 from kinectdepthmapenhancement_tpu.core.io import imread_rgb
 from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
 from kinectdepthmapenhancement_tpu.models import pipelines
+from kinectdepthmapenhancement_tpu.utils import parity
 
 REF_COLOR = "/root/reference/input/color.jpg"
 
@@ -45,80 +43,23 @@ def _scene(h=96, w=128, seed=0):
 def test_kde_composed_oracle_parity():
     intr, color, noisy, gt, grid = _scene()
     cfg = dataclasses.replace(KDEConfig(), grid=grid)
+    want = golden.kde_oracle("kde_oracle_96x128_seed0", noisy, color, intr, grid)
+    res = parity.kde(jnp.asarray(noisy), jnp.asarray(color), intr, cfg)
+    parity.assert_kde_matches(res, want)
 
-    want = golden.cached(
-        "kde_oracle_96x128_seed0",
-        dict(
-            depth=noisy.astype(np.float64), color=color, fx=intr.fx,
-            fy=intr.fy, cx=intr.cx, cy=intr.cy, rows=grid.rows,
-            cols=grid.cols, max_fit_residual=0.0025,
-        ),
-        lambda: {
-            k: np.asarray(v)
-            for k, v in oracle_pipeline.kde_oracle(
-                noisy.astype(np.float64), color, intr.fx, intr.fy, intr.cx,
-                intr.cy, rows=grid.rows, cols=grid.cols,
-            ).items()
-        },
-    )
-    res = jax.jit(
-        lambda d, c: pipelines.kde_pipeline(d, c, intr, cfg)
-    )(jnp.asarray(noisy), jnp.asarray(color))
 
-    # stage 1: JBF depth — pure filter arithmetic, f32 vs f64 only
-    np.testing.assert_allclose(
-        np.asarray(res.jbf_depth), want["jbf"], rtol=2e-4, atol=0.25
-    )
+@pytest.mark.full
+def test_chip_smoke_oracle_parity_phase_on_cpu():
+    """chip_smoke.py's phase 3 (fixture loading + shared assertions) passes
+    on the CPU, so a failure on the card is the card's numerics."""
+    import chip_smoke
 
-    # stage 2: normals agree in direction almost everywhere (the covariance
-    # eigenvector is ill-conditioned exactly at depth edges)
-    got_n = np.asarray(res.normals)
-    wn = want["normals"]
-    both_valid = (got_n != -1.0).any(-1) & (wn != -1.0).any(-1)
-    dots = np.abs(np.sum(got_n * wn, axis=-1))
-    valid_flags_match = ((got_n != -1.0).any(-1) == (wn != -1.0).any(-1))
-    assert valid_flags_match.mean() > 0.995
-    # pixels where BOTH sides degenerate to the zero vector (rest-normal
-    # cross products with no valid neighbour) agree by construction
-    both_zero = (np.linalg.norm(got_n, axis=-1) < 1e-6) & (
-        np.linalg.norm(wn, axis=-1) < 1e-6
-    )
-    ok = both_zero | (dots > 0.999)
-    assert ok[both_valid].mean() > 0.995
-
-    # stage 3: NASP labels — the integer handoff must agree except at argmin
-    # ties flipped by accumulated f32-vs-f64 input differences (per-op tests
-    # prove label-exactness on IDENTICAL inputs; here the inputs drift)
-    got_l = np.asarray(res.nasp_labels)
-    assert (got_l == want["nasp_labels"]).mean() > 0.995
-
-    # stage 4: merged labels — compare the PARTITION up to representative
-    # naming, over pixels whose NASP labels agreed
-    got_m = np.asarray(res.merged_labels)
-    want_m = want["merged_labels"]
-    stable = got_l == want["nasp_labels"]
-    assert ((got_m < 0) == (want_m < 0))[stable].mean() > 0.995
-    pairs = {}
-    ok_pairs = total = 0
-    for g, w_ in zip(got_m[stable].ravel(), want_m[stable].ravel()):
-        if g >= 0 and w_ >= 0:
-            total += 1
-            ok_pairs += pairs.setdefault(g, w_) == w_
-    assert total > 0 and ok_pairs / total > 0.995
-
-    # stage 5: final optimized points — mm-level agreement end to end.
-    # variance/size gates compare f32 vs f64 sums, so a boundary-straddling
-    # pixel can take a different branch (worst case a 3%-of-z blend flip);
-    # require 99% of pixels within 1 mm and a bounded 99.9th percentile.
-    got_p = np.asarray(res.optimized_points)
-    diff = np.abs(got_p - want["optimized_points"]).max(-1)
-    assert (diff < 1.0).mean() > 0.99
-    assert float(np.quantile(diff, 0.999)) < 120.0  # 3% of max scene depth
+    chip_smoke.oracle_parity()
 
 
 @pytest.mark.full
 def test_kde_composed_oracle_parity_reference_exact():
-    """VERDICT r3 #5: the documented claim that max_plane_residual=inf
+    """The documented claim that max_plane_residual=inf
     restores exact reference behaviour (Projection_GPU.cu:174-196 has no
     plane-confidence gate), tested END TO END: the composed pipeline and the
     composed oracle both run in reference mode and must still agree."""
@@ -126,33 +67,15 @@ def test_kde_composed_oracle_parity_reference_exact():
     cfg = dataclasses.replace(
         KDEConfig(), grid=grid, max_plane_residual=float("inf")
     )
-
-    want = golden.cached(
-        "kde_oracle_96x128_seed0_refexact",
-        dict(
-            depth=noisy.astype(np.float64), color=color, fx=intr.fx,
-            fy=intr.fy, cx=intr.cx, cy=intr.cy, rows=grid.rows,
-            cols=grid.cols, max_fit_residual=float("inf"),
-        ),
-        lambda: {
-            k: np.asarray(v)
-            for k, v in oracle_pipeline.kde_oracle(
-                noisy.astype(np.float64), color, intr.fx, intr.fy, intr.cx,
-                intr.cy, rows=grid.rows, cols=grid.cols,
-                max_fit_residual=float("inf"),
-            ).items()
-        },
+    want = golden.kde_oracle(
+        "kde_oracle_96x128_seed0_refexact", noisy, color, intr, grid,
+        max_fit_residual=float("inf"),
     )
-    res = jax.jit(
-        lambda d, c: pipelines.kde_pipeline(d, c, intr, cfg)
-    )(jnp.asarray(noisy), jnp.asarray(color))
+    res = parity.kde(jnp.asarray(noisy), jnp.asarray(color), intr, cfg)
 
     got_l = np.asarray(res.nasp_labels)
     assert (got_l == want["nasp_labels"]).mean() > 0.995
-    got_p = np.asarray(res.optimized_points)
-    diff = np.abs(got_p - want["optimized_points"]).max(-1)
-    assert (diff < 1.0).mean() > 0.99
-    assert float(np.quantile(diff, 0.999)) < 120.0
+    parity.assert_points_match(res.optimized_points, want["optimized_points"])
 
 
 @pytest.mark.full
@@ -195,41 +118,15 @@ def test_spdsp_reference_exact_mode_disables_gate():
 def test_rgbf_composed_oracle_parity():
     intr, color, noisy, gt, grid = _scene()
     cfg = dataclasses.replace(RGBFConfig(), grid=grid)
-
-    want = golden.cached(
-        "rgbf_oracle_96x128_seed0",
-        dict(
-            depth=noisy.astype(np.float64), color=color, fx=intr.fx,
-            fy=intr.fy, cx=intr.cx, cy=intr.cy, rows=grid.rows,
-            cols=grid.cols,
-        ),
-        lambda: {
-            k: np.asarray(v)
-            for k, v in oracle_pipeline.rgbf_oracle(
-                noisy.astype(np.float64), color, intr.fx, intr.fy, intr.cx,
-                intr.cy, rows=grid.rows, cols=grid.cols,
-            ).items()
-        },
-    )
-    pts = projective_to_real(jnp.asarray(noisy), intr)
-    res = jax.jit(
-        lambda d, p, c: pipelines.rgbf_pipeline(d, p, c, cfg)
-    )(jnp.asarray(noisy), pts, jnp.asarray(color))
-
-    # colour-SLIC sees bit-identical inputs (sd=0: no depth term) -> exact;
-    # depth-SLIC sees f32-vs-f64 points -> allow argmin-tie flips
-    np.testing.assert_array_equal(np.asarray(res.color_labels), want["color_labels"])
-    assert (np.asarray(res.depth_labels) == want["depth_labels"]).mean() > 0.995
-    assert (np.asarray(res.refined_labels) == want["refined_labels"]).mean() > 0.99
-    got_d = np.asarray(res.refined_depth)
-    dd = np.abs(got_d - want["refined_depth"])
-    assert (dd < 0.5).mean() > 0.99           # f32-vs-f64 filter arithmetic
-    assert float(np.quantile(dd, 0.999)) < 400.0  # zeroing-command flips
+    want = golden.rgbf_oracle("rgbf_oracle_96x128_seed0", noisy, color, intr, grid)
+    d = jnp.asarray(noisy)
+    res = parity.rgbf(d, projective_to_real(d, intr), jnp.asarray(color), cfg)
+    parity.assert_rgbf_matches(res, want)
 
 
 @pytest.mark.full
 def test_kde_beats_jbf_on_far_range_banding():
-    """VERDICT r3 #4: the comparison the reference exists to win.  On
+    """The comparison the reference exists to win.  On
     far-range (3-5.5 m) Kinect-v1 data the quantization bands are many
     pixels wide, so per-pixel filtering (JBF) cannot see across a band to
     recover the true surface.  Gate: KDE RMSE < 90% of JBF RMSE (measured:

@@ -4,11 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from jax.sharding import NamedSharding, PartitionSpec as P
-try:  # jax >= 0.8
-    from jax import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
+from jax.sharding import PartitionSpec as P
 
 from kinectdepthmapenhancement_tpu.core.camera import default_kinect_intrinsics
 from kinectdepthmapenhancement_tpu.core.config import GridParams, KDEConfig
@@ -71,7 +68,7 @@ def test_sharded_kde_matches_single_device():
     color = jnp.asarray(rng.integers(0, 255, (batch, h, w, 3), dtype=np.uint8))
 
     step = sharded_kde_step(mesh, intr, cfg)
-    got = np.asarray(step(depth, color))
+    got = np.asarray(step(depth, color).optimized_points)
 
     single = jax.jit(
         jax.vmap(lambda d, c: kde_pipeline(d, c, intr, cfg).optimized_points)
@@ -103,7 +100,7 @@ def test_jbf_sharded_bitwise_small():
 @requires_8
 @pytest.mark.full
 def test_jbf_sharded_bitwise_full_res():
-    """VERDICT #7: full 640x480 at spatial=4 through the halo path."""
+    """Full 640x480 at spatial=4 through the halo path."""
     from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
     from kinectdepthmapenhancement_tpu.ops import bilateral
     from kinectdepthmapenhancement_tpu.parallel.stencil_shard import jbf_sharded
@@ -119,89 +116,29 @@ def test_jbf_sharded_bitwise_full_res():
 
 
 @requires_8
-def test_jbf_sharded_pallas_interpret_bitwise():
-    """VERDICT r3 #2: the Pallas JBF through the shard_map halo route.  On
-    the CPU mesh the kernel runs in interpret mode; semantics (and therefore
-    the sharding contract) are identical to the TPU lowering."""
-    from kinectdepthmapenhancement_tpu.ops import bilateral
-    from kinectdepthmapenhancement_tpu.parallel.stencil_shard import jbf_sharded
-
-    mesh = make_mesh(4, spatial=4)
-    h, w = 48, 64
-    rng = np.random.default_rng(7)
-    depth = rng.uniform(400.0, 4000.0, (h, w)).astype(np.float32)
-    depth[rng.random((h, w)) < 0.1] = 0.0
-    color = rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
-    d, c = jnp.asarray(depth), jnp.asarray(color)
-
-    got = np.asarray(
-        jax.jit(lambda a, b: jbf_sharded(a, b, mesh, impl="pallas"))(d, c)
-    )
-    want = np.asarray(jax.jit(bilateral.joint_bilateral_filter)(d, c))
-    np.testing.assert_array_equal(got, want)
-
-
-@requires_8
-def test_sharded_kde_spatial_forces_pallas_off():
-    """VERDICT r3 #2: a spatially sharded KDE step with the Pallas flags
-    forced ON must take a well-defined path — sharded_kde_step disables the
-    kernels (GSPMD cannot partition a pallas_call) and still matches the
-    unsharded XLA-path run."""
-    from kinectdepthmapenhancement_tpu.parallel.sharding import disable_pallas
-
-    cfg = dataclasses.replace(KDEConfig(), grid=GridParams(rows=3, cols=4))
-    forced = dataclasses.replace(
-        cfg,
-        normals=dataclasses.replace(cfg.normals, cov_impl="pallas"),
-        nasp=dataclasses.replace(cfg.nasp, grad_impl="pallas"),
-    )
-    off = disable_pallas(forced)
-    assert off.normals.cov_impl == "xla" and off.normals.dt_impl == "xla"
-    assert off.nasp.grad_impl == "xla" and off.nasp.stats_impl == "xla"
-
-    mesh = make_mesh(8, spatial=2)
-    h, w = 96, 128
-    intr = default_kinect_intrinsics(w, h)
-    rng = np.random.default_rng(3)
-    batch = mesh.shape["data"]
-    depth = jnp.asarray(rng.uniform(500, 4000, (batch, h, w)).astype(np.float32))
-    color = jnp.asarray(rng.integers(0, 255, (batch, h, w, 3), dtype=np.uint8))
-
-    step = sharded_kde_step(mesh, intr, forced)  # must not hit a pallas_call
-    got = np.asarray(step(depth, color))
-    single = jax.jit(
-        jax.vmap(lambda d, c: kde_pipeline(d, c, intr, cfg).optimized_points)
-    )
-    want = np.asarray(single(depth, color))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0.5)
-
-
-@requires_8
-def test_sharded_kde_data_parallel_runs_pallas():
-    """Pure data parallelism routes through shard_map, where each device owns
-    whole frames and the Pallas kernels are safe; with the flags forced on
-    (interpret mode on the CPU mesh) the step must execute and match."""
-    mesh = make_mesh(4, spatial=1)
+def test_sharded_kde_data_parallel_matches_single_device():
+    """Pure data parallelism ('x' == 1) routes through shard_map: each
+    device runs the whole pipeline on its own frames, so every output field
+    matches the unsharded batch."""
+    mesh = make_mesh(8, spatial=1)
     h, w = 96, 128
     intr = default_kinect_intrinsics(w, h)
     cfg = dataclasses.replace(KDEConfig(), grid=GridParams(rows=3, cols=4))
-    forced = dataclasses.replace(
-        cfg,
-        normals=dataclasses.replace(cfg.normals, cov_impl="pallas"),
-        nasp=dataclasses.replace(cfg.nasp, grad_impl="pallas"),
-    )
     rng = np.random.default_rng(4)
     batch = mesh.shape["data"]
     depth = jnp.asarray(rng.uniform(500, 4000, (batch, h, w)).astype(np.float32))
     color = jnp.asarray(rng.integers(0, 255, (batch, h, w, 3), dtype=np.uint8))
 
-    step = sharded_kde_step(mesh, intr, forced)
-    got = np.asarray(step(depth, color))
-    single = jax.jit(
-        jax.vmap(lambda d, c: kde_pipeline(d, c, intr, cfg).optimized_points)
+    got = sharded_kde_step(mesh, intr, cfg)(depth, color)
+    want = jax.jit(jax.vmap(lambda d, c: kde_pipeline(d, c, intr, cfg)))(
+        depth, color
     )
-    want = np.asarray(single(depth, color))
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=0.5)
+    np.testing.assert_allclose(
+        np.asarray(got.optimized_points), np.asarray(want.optimized_points),
+        rtol=1e-4, atol=0.5,
+    )
+    agree = np.asarray(got.merged_labels) == np.asarray(want.merged_labels)
+    assert agree.mean() > 0.995
 
 
 @requires_8
@@ -214,7 +151,7 @@ def test_dryrun_multichip_entrypoint():
 @requires_8
 @pytest.mark.full
 def test_sharded_kde_matches_single_device_full_res():
-    """VERDICT r2 missing #4: the FULL KDE pipeline at the reference's native
+    """The FULL KDE pipeline at the reference's native
     640x480 through GSPMD spatial sharding (spatial=2), value-parity vs the
     unsharded run.  (Whether spatial sharding is a speedup needs >= 2 real
     chips; this proves it is CORRECT at full resolution.)"""
@@ -227,7 +164,7 @@ def test_sharded_kde_matches_single_device_full_res():
     color = jnp.asarray(color_np)[None]
 
     step = sharded_kde_step(mesh, intr, KDEConfig())
-    got = np.asarray(step(depth, color))
+    got = np.asarray(step(depth, color).optimized_points)
 
     single = jax.jit(
         jax.vmap(
@@ -235,7 +172,7 @@ def test_sharded_kde_matches_single_device_full_res():
         )
     )
     want = np.asarray(single(depth, color))
-    # Round-5 tightening (VERDICT r4 #3): scripts/analyze_sharded_gates.py
+    # scripts/analyze_sharded_gates.py
     # found ZERO diverging pixels at 640x480 on this mesh — GSPMD's spatial
     # partition preserves every reduction grouping that feeds a gate (cells
     # never straddle the x=2 shard cut at 640/2, and the K-side folds are

@@ -1,4 +1,4 @@
-"""MXU one-hot fast path vs reference gather/segment-sum: must agree."""
+"""One-hot product route vs reference gather/segment-sum: must agree."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -25,12 +25,12 @@ def test_gather_modes_agree():
     table, labels, _, k = _data()
     tables.force_mode("reference")
     ref = np.asarray(tables.gather(table, labels))
-    tables.force_mode("mxu")
-    mxu = np.asarray(tables.gather(table, labels))
+    tables.force_mode("onehot")
+    onehot = np.asarray(tables.gather(table, labels))
     # one-hot rows have a single 1: the matmul IS the table value
-    np.testing.assert_allclose(mxu, ref, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(onehot, ref, rtol=0, atol=1e-5)
     # and exactly zero for invalid labels
-    assert np.all(mxu[np.asarray(labels) < 0] == 0.0)
+    assert np.all(onehot[np.asarray(labels) < 0] == 0.0)
 
 
 def test_gather_1d_table():
@@ -39,9 +39,9 @@ def test_gather_1d_table():
     labels = jnp.asarray(rng.integers(-1, 29, size=(64,)).astype(np.int32))
     tables.force_mode("reference")
     ref = np.asarray(tables.gather(t, labels))
-    tables.force_mode("mxu")
-    mxu = np.asarray(tables.gather(t, labels))
-    np.testing.assert_allclose(mxu, ref, atol=1e-7)
+    tables.force_mode("onehot")
+    onehot = np.asarray(tables.gather(t, labels))
+    np.testing.assert_allclose(onehot, ref, atol=1e-7)
 
 
 def test_gather_exact_sentinels():
@@ -49,7 +49,7 @@ def test_gather_exact_sentinels():
     downstream compare with == -1.0)."""
     t = jnp.asarray(np.array([[-1.0, -1.0, -1.0], [0.5, -1.0, 2.0]], np.float32))
     labels = jnp.asarray(np.array([0, 1, 0], np.int32))
-    tables.force_mode("mxu")
+    tables.force_mode("onehot")
     out = np.asarray(tables.gather(t, labels))
     assert np.all(out[0] == -1.0) and out[1, 1] == -1.0
 
@@ -58,21 +58,21 @@ def test_segment_sum_modes_agree():
     table, labels, feats, k = _data(2)
     tables.force_mode("reference")
     ref = np.asarray(tables.segment_sum(feats, labels, k))
-    tables.force_mode("mxu")
-    mxu = np.asarray(tables.segment_sum(feats, labels, k))
-    np.testing.assert_allclose(mxu, ref, rtol=1e-6, atol=1e-3)
+    tables.force_mode("onehot")
+    onehot = np.asarray(tables.segment_sum(feats, labels, k))
+    np.testing.assert_allclose(onehot, ref, rtol=1e-6, atol=1e-3)
 
 
 def test_segment_sum_counts_exact():
     """Sums of ones (cluster sizes) must be exact integers on both paths."""
     _, labels, _, k = _data(3, n=5000)
     ones = jnp.ones((5000, 1), jnp.float32)
-    tables.force_mode("mxu")
-    mxu = np.asarray(tables.segment_sum(ones, labels, k))[:, 0]
+    tables.force_mode("onehot")
+    onehot = np.asarray(tables.segment_sum(ones, labels, k))[:, 0]
     tables.force_mode("reference")
     ref = np.asarray(tables.segment_sum(ones, labels, k))[:, 0]
-    np.testing.assert_array_equal(mxu, ref)
-    assert np.all(mxu == np.round(mxu))
+    np.testing.assert_array_equal(onehot, ref)
+    assert np.all(onehot == np.round(onehot))
 
 
 def test_ccl_merge_same_under_both_modes():
@@ -92,13 +92,13 @@ def test_ccl_merge_same_under_both_modes():
     )
     tables.force_mode("reference")
     ref = ccl.merge_normals(*args)
-    tables.force_mode("mxu")
-    mxu = ccl.merge_normals(*args)
-    np.testing.assert_array_equal(np.asarray(ref.labels), np.asarray(mxu.labels))
+    tables.force_mode("onehot")
+    onehot = ccl.merge_normals(*args)
+    np.testing.assert_array_equal(np.asarray(ref.labels), np.asarray(onehot.labels))
     np.testing.assert_allclose(
-        np.asarray(ref.nd_map), np.asarray(mxu.nd_map), rtol=1e-4, atol=1e-2
+        np.asarray(ref.nd_map), np.asarray(onehot.nd_map), rtol=1e-4, atol=1e-2
     )
-    np.testing.assert_array_equal(np.asarray(ref.sizes), np.asarray(mxu.sizes))
+    np.testing.assert_array_equal(np.asarray(ref.sizes), np.asarray(onehot.sizes))
 
 
 def test_slic_same_under_both_modes(small_scene):
@@ -113,10 +113,48 @@ def test_slic_same_under_both_modes(small_scene):
     p = SLICParams(100.0, 20.0, 200.0, 0.0, 2)
     tables.force_mode("reference")
     ref = slic.segment(jnp.asarray(color), pts, grid=grid, params=p, variant="dasp")
-    tables.force_mode("mxu")
-    mxu = slic.segment(jnp.asarray(color), pts, grid=grid, params=p, variant="dasp")
-    np.testing.assert_array_equal(np.asarray(ref.labels), np.asarray(mxu.labels))
+    tables.force_mode("onehot")
+    onehot = slic.segment(jnp.asarray(color), pts, grid=grid, params=p, variant="dasp")
+    np.testing.assert_array_equal(np.asarray(ref.labels), np.asarray(onehot.labels))
     np.testing.assert_allclose(
-        np.asarray(ref.clusters.center), np.asarray(mxu.clusters.center),
+        np.asarray(ref.clusters.center), np.asarray(onehot.clusters.center),
         rtol=1e-5, atol=1e-2,
     )
+
+
+@pytest.mark.parametrize("r", [1, 2, 4])
+def test_cell_index_matches_reference_tables(r):
+    """The cell-local index (the GPU route of every single-iteration SLIC
+    and its downstream CCL/plane gathers) against the reference gather and
+    segment sum, for labels anywhere in each cell's [-r, r-1]^2
+    neighbourhood (and -1)."""
+    from kinectdepthmapenhancement_tpu.core.config import GridParams
+    from kinectdepthmapenhancement_tpu.ops import slic
+
+    grid = GridParams(rows=6, cols=8)
+    h, w, k, f = 96, 128, grid.num_clusters, 6
+    rng = np.random.default_rng(r)
+    cy = (np.arange(h) // (h // grid.rows))[:, None]
+    cx = (np.arange(w) // (w // grid.cols))[None, :]
+    ny = np.clip(cy + rng.integers(-r, r, (h, w)), 0, grid.rows - 1)
+    nx = np.clip(cx + rng.integers(-r, r, (h, w)), 0, grid.cols - 1)
+    lab = np.where(rng.random((h, w)) < 0.1, -1, ny * grid.cols + nx)
+    labels = jnp.asarray(lab.astype(np.int32))
+    table = jnp.asarray(rng.normal(scale=1e3, size=(k, f)).astype(np.float32))
+    feats = jnp.asarray(rng.normal(scale=10.0, size=(h, w, f)).astype(np.float32))
+    mask = jnp.asarray(rng.random((h, w)) < 0.8)
+
+    tables.force_mode("onehot")
+    idx = slic._CellIndex(labels, grid, r, h, w)
+    got_g = np.asarray(idx.gather(table))
+    got_s = np.asarray(idx.segment_sum(feats, mask))
+    got_c = np.asarray(idx.counts())
+
+    tables.force_mode("reference")
+    want_g = np.asarray(tables.gather(table, labels))
+    want_s = np.asarray(
+        tables.segment_sum(feats, jnp.where(mask, labels, -1), k)
+    )
+    np.testing.assert_array_equal(got_g, want_g)
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-3)
+    np.testing.assert_array_equal(got_c, np.bincount(lab[lab >= 0], minlength=k))
