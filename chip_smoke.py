@@ -111,8 +111,7 @@ def _oracle_programs():
     color, noisy, _ = make_noisy_scene(h, w, intr, seed=0)
     grid = GridParams(rows=3, cols=4)
     d, c = jnp.asarray(noisy), jnp.asarray(color)
-    scene = (noisy, color, intr, grid)
-    return scene, {
+    return {
         "oracle_kde": (
             parity.kde, (d, c, intr, dataclasses.replace(KDEConfig(), grid=grid))
         ),
@@ -126,23 +125,24 @@ def _oracle_programs():
     }
 
 
+def oracle_fixture(name: str) -> dict:
+    """A committed NumPy-oracle fixture, tests/golden/{name}.npz, as a dict
+    of arrays (its cache key left out)."""
+    path = os.path.join(ROOT, "tests", "golden", f"{name}.npz")
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files if k != "__key__"}
+
+
 def oracle_parity() -> None:
     """Phase 3: KDE and RGBF at 96x128 (grid 3x4) on JAX's default device
     against the composed NumPy-oracle fixtures."""
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    import golden
-
     from kinectdepthmapenhancement_tpu.utils import parity
 
-    scene, programs = _oracle_programs()
+    programs = _oracle_programs()
     fn, args = programs["oracle_kde"]
-    parity.assert_kde_matches(
-        fn(*args), golden.kde_oracle("kde_oracle_96x128_seed0", *scene)
-    )
+    parity.assert_kde_matches(fn(*args), oracle_fixture("kde_oracle_96x128_seed0"))
     fn, args = programs["oracle_rgbf"]
-    parity.assert_rgbf_matches(
-        fn(*args), golden.rgbf_oracle("rgbf_oracle_96x128_seed0", *scene)
-    )
+    parity.assert_rgbf_matches(fn(*args), oracle_fixture("rgbf_oracle_96x128_seed0"))
     log("[3] oracle parity ok: kde, rgbf at 96x128")
 
 
@@ -150,22 +150,17 @@ def _kde_on_cpu(depth, color, intr):
     """KDE at 640x480 compiled for and run on the host CPU backend."""
     import jax
 
+    from kinectdepthmapenhancement_tpu.core.config import KDEConfig
     from kinectdepthmapenhancement_tpu.utils import parity
 
     cpu = jax.devices("cpu")[0]
     t0 = time.perf_counter()
     res = parity.kde(
         jax.device_put(depth, cpu), jax.device_put(color, cpu), intr,
-        _default_kde(),
+        KDEConfig(),
     )
     res = jax.block_until_ready(res)
     return res, time.perf_counter() - t0
-
-
-def _default_kde():
-    from kinectdepthmapenhancement_tpu.core.config import KDEConfig
-
-    return KDEConfig()
 
 
 def _pipeline_programs(noisy, color, intr):
@@ -176,6 +171,7 @@ def _pipeline_programs(noisy, color, intr):
 
     from kinectdepthmapenhancement_tpu.core.camera import projective_to_real
     from kinectdepthmapenhancement_tpu.core.config import (
+        KDEConfig,
         RGBFConfig,
         SPDSPConfig,
         TOFConfig,
@@ -185,7 +181,7 @@ def _pipeline_programs(noisy, color, intr):
 
     d, c = jnp.asarray(noisy), jnp.asarray(color)
     pts = projective_to_real(d, intr)
-    kde_pm = dataclasses.replace(_default_kde(), plane_merge=True)
+    kde_pm = dataclasses.replace(KDEConfig(), plane_merge=True)
     return {
         "jbf": (jax.jit(pipelines.jbf_pipeline), (d, c)),
         "mrf": (jax.jit(pipelines.mrf_pipeline), (d, c)),
@@ -193,7 +189,7 @@ def _pipeline_programs(noisy, color, intr):
             jax.jit(lambda a, p, b: pipelines.rgbf_pipeline(a, p, b, RGBFConfig())),
             (d, pts, c),
         ),
-        "kde": (jax.jit(lambda a, b: parity.kde(a, b, intr, _default_kde())), (d, c)),
+        "kde": (jax.jit(lambda a, b: parity.kde(a, b, intr, KDEConfig())), (d, c)),
         "kde_plane_merge": (
             jax.jit(lambda a, b: pipelines.kde_pipeline(a, b, intr, kde_pm)),
             (d, c),
@@ -337,11 +333,12 @@ def _stream_programs(frames, color, intr):
     import jax.numpy as jnp
 
     from kinectdepthmapenhancement_tpu.core import buffer2d
+    from kinectdepthmapenhancement_tpu.core.config import KDEConfig
     from kinectdepthmapenhancement_tpu.models import streaming
 
     args = (buffer2d.init(H, W), jnp.asarray(np.stack(frames[:8])), jnp.asarray(color))
     return {
-        f"stream_{mode}": (streaming._chunk_step(intr, _default_kde(), kde_only), args)
+        f"stream_{mode}": (streaming._chunk_step(intr, KDEConfig(), kde_only), args)
         for mode, kde_only in (("serve", True), ("capture", False))
     }
 
@@ -352,6 +349,7 @@ def phase_stream(futures, kde_step, frames, color, intr):
     compile finds the precompiled chunk executables in the compile cache."""
     import jax.numpy as jnp
 
+    from kinectdepthmapenhancement_tpu.core.config import KDEConfig
     from kinectdepthmapenhancement_tpu.models import streaming
     from kinectdepthmapenhancement_tpu.utils import parity
 
@@ -363,7 +361,7 @@ def phase_stream(futures, kde_step, frames, color, intr):
         outs = []
         t0 = time.perf_counter()
         state = streaming.run_stream(
-            iter(frames[:n]), color, intr, cfg=_default_kde(), batch=8,
+            iter(frames[:n]), color, intr, cfg=KDEConfig(), batch=8,
             kde_only=kde_only,
             on_outputs=lambda start, pts: outs.append((start, pts)),
         )
@@ -389,38 +387,42 @@ def four_card_parity(h: int, w: int, grid, batch: int = 8) -> None:
     import jax.numpy as jnp
 
     from kinectdepthmapenhancement_tpu.core.camera import default_kinect_intrinsics
+    from kinectdepthmapenhancement_tpu.core.config import KDEConfig
     from kinectdepthmapenhancement_tpu.core.testdata import make_noisy_scene
     from kinectdepthmapenhancement_tpu.parallel.mesh import make_mesh
     from kinectdepthmapenhancement_tpu.parallel.sharding import sharded_kde_step
     from kinectdepthmapenhancement_tpu.utils import parity
 
     intr = default_kinect_intrinsics(w, h)
-    cfg = dataclasses.replace(_default_kde(), grid=grid)
+    cfg = dataclasses.replace(KDEConfig(), grid=grid)
     scenes = [make_noisy_scene(h, w, intr, seed=i) for i in range(batch)]
     color = jnp.asarray(np.stack([s[0] for s in scenes]))
     depth = jnp.asarray(np.stack([s[1] for s in scenes]))
 
     # one device, frame by frame: the phase-4 KDE program
-    single = jax.jit(lambda a, b: parity.kde(a, b, intr, cfg))
-    programs = {"single": (single, (depth[0], color[0]))}
-    meshes = {}
+    programs = {
+        "single": (
+            jax.jit(lambda a, b: parity.kde(a, b, intr, cfg)), (depth[0], color[0])
+        )
+    }
     for data, x in ((4, 1), (2, 2)):
         mesh = make_mesh(4, spatial=x)
         assert dict(mesh.shape) == {"data": data, "x": x}
-        meshes[(data, x)] = sharded_kde_step(mesh, intr, cfg)
-        programs[f"data={data},x={x}"] = (meshes[(data, x)], (depth, color))
+        programs[f"data={data},x={x}"] = (
+            sharded_kde_step(mesh, intr, cfg), (depth, color)
+        )
     with concurrent.futures.ThreadPoolExecutor(len(programs)) as pool:
         futures = {
             name: pool.submit(_compile, fn, *args)
             for name, (fn, args) in programs.items()
         }
-        for name in programs:
-            _compiled(futures, name, "four")
+        compiled = {name: _compiled(futures, name, "four") for name in programs}
 
+    single = compiled.pop("single")
     want = [single(depth[i], color[i]) for i in range(batch)]
     want_pts = np.stack([np.asarray(r.optimized_points) for r in want])
     want_lab = np.stack([np.asarray(r.merged_labels) for r in want])
-    for (data, x), step in meshes.items():
+    for name, step in compiled.items():
         t0 = time.perf_counter()
         got = jax.block_until_ready(step(depth, color))
         secs = time.perf_counter() - t0
@@ -430,7 +432,7 @@ def four_card_parity(h: int, w: int, grid, batch: int = 8) -> None:
         agree = float((np.asarray(got.merged_labels) == want_lab).mean())
         assert agree > 0.995, agree
         log(
-            f"[four] mesh data={data},x={x} batch={batch} {h}x{w}: "
+            f"[four] mesh {name} batch={batch} {h}x{w}: "
             f"points parity ok, label agreement={agree:.6f}, "
             f"first call s={secs:.1f}"
         )
@@ -449,7 +451,7 @@ def one_card(dev) -> None:
     color, noisy, gt = make_noisy_scene(H, W, intr, seed=0)
     frames = _stream_frames(gt)
     fn, entry_args = __graft_entry__.entry()
-    _, oracle = _oracle_programs()
+    oracle = _oracle_programs()
     pipes = _pipeline_programs(noisy, color, intr)
     programs = {"kde_entry": (jax.jit(fn), entry_args)}
     programs.update(oracle)

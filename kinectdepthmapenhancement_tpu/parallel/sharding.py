@@ -25,21 +25,20 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from kinectdepthmapenhancement_tpu.core.camera import Intrinsics, default_kinect_intrinsics
 from kinectdepthmapenhancement_tpu.core.config import GridParams, KDEConfig
-from kinectdepthmapenhancement_tpu.models.pipelines import KDEResult, kde_pipeline
+from kinectdepthmapenhancement_tpu.models.pipelines import kde_pipeline
 from kinectdepthmapenhancement_tpu.parallel.mesh import make_mesh
 
 
-def _result_shardings(mesh: Mesh) -> KDEResult:
-    """Output shardings of the spatial route: image maps keep the input's
-    (batch, width) tiling, the [B, K] cluster tables shard the batch only."""
-    img = NamedSharding(mesh, P("data", None, "x"))
-    pts = NamedSharding(mesh, P("data", None, "x", None))
-    tab = NamedSharding(mesh, P("data"))
-    return KDEResult(
-        optimized_points=pts, plane_fitted=pts, jbf_depth=img, normals=pts,
-        nasp_labels=img, merged_labels=img, merged_variance=tab,
-        merged_sizes=tab,
-    )
+def _keep_tiling(mesh: Mesh, result):
+    """Constrains every output of the spatial route: image maps ([B, H, W,
+    ...]) keep the input's (batch, width) tiling, the [B, K] cluster tables
+    shard the batch only."""
+
+    def constrain(a):
+        spec = P("data", None, "x") if a.ndim >= 3 else P("data")
+        return jax.lax.with_sharding_constraint(a, NamedSharding(mesh, spec))
+
+    return jax.tree_util.tree_map(constrain, result)
 
 
 def sharded_kde_step(mesh: Mesh, intr: Intrinsics, cfg: KDEConfig):
@@ -61,12 +60,11 @@ def sharded_kde_step(mesh: Mesh, intr: Intrinsics, cfg: KDEConfig):
 
     if mesh.shape.get("x", 1) > 1:
         return jax.jit(
-            step,
+            lambda depth_b, color_b: _keep_tiling(mesh, step(depth_b, color_b)),
             in_shardings=(
                 NamedSharding(mesh, P("data", None, "x")),
                 NamedSharding(mesh, P("data", None, "x", None)),
             ),
-            out_shardings=_result_shardings(mesh),
         )
     return jax.jit(
         shard_map(

@@ -2,9 +2,8 @@
 
 Replaces main.cpp's evaluation loop (main.cpp:217-309: per-method mean 3-D
 Euclidean error vs. the temporally averaged buffer, over pixels where both
-depths lie in (50, 15000) mm) — on device, jittable.  For TIMING use
-utils/timing.py: naive repeat-timing of identical inputs reports fantasy
-numbers on runtimes that memoize (executable, input) pairs (PERF.md).
+depths lie in (50, 15000) mm) — on device, jittable.  For timing use
+utils/timing.py, which feeds every timed call fresh inputs.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
-"""Dispatch-inclusive wall-clock timing of a jitted pipeline.
+"""Dispatch-inclusive wall-clock timing of a compiled pipeline.
 
-`time_pipeline` compiles and warms once, then times each call from dispatch
-to the host read of a scalar reduction of the output, so the time covers the
-whole device computation.  Every timed call gets inputs with fresh contents
-from `make_args(i)`, so no call can reuse an earlier call's result.
+`time_pipeline` warms once, then times each call from dispatch to the host
+read of the scalar the program returns, so the time covers the whole device
+computation.  Every timed call gets inputs with fresh contents from
+`make_args(i)`, so no call can reuse an earlier call's result.
 """
 
 from __future__ import annotations
@@ -12,20 +12,19 @@ import time
 from typing import Callable, Dict, Sequence
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 
 def time_pipeline(
-    fn: Callable,
+    red: Callable,
     make_args: Callable[[int], Sequence],
     *,
     iters: int = 5,
 ) -> Dict[str, float]:
-    """fn(*args) -> array (any shape).  make_args(i) must return freshly
-    uniquified device inputs for iteration i (i == -1 for warmup)."""
-    red = jax.jit(lambda *a: jnp.sum(fn(*a)))
-    float(red(*make_args(-1)))  # compile + warm
+    """red(*args) -> scalar (a jitted or compiled reduction of the pipeline's
+    output).  make_args(i) must return freshly uniquified device inputs for
+    iteration i (i == -1 for warmup)."""
+    float(red(*make_args(-1)))  # warm
     times = []
     for i in range(iters):
         args = make_args(i)

@@ -57,6 +57,30 @@ def test_chip_smoke_oracle_parity_phase_on_cpu():
     chip_smoke.oracle_parity()
 
 
+@pytest.mark.parametrize(
+    "name, extra",
+    [
+        ("kde_oracle_96x128_seed0", {"max_fit_residual": 0.0025}),
+        ("rgbf_oracle_96x128_seed0", {}),
+    ],
+)
+def test_chip_smoke_fixtures_match_current_oracles(name, extra):
+    """chip_smoke.py loads the committed fixtures without recomputing them;
+    each must carry the key of the current oracle code and the phase-3
+    scene, or it would hold the card to a stale oracle."""
+    import chip_smoke
+
+    intr, color, noisy, _, grid = _scene()
+    key = golden._input_digest(
+        golden._oracle_inputs(noisy, color, intr, grid, **extra)
+    )
+    path = os.path.join(os.path.dirname(chip_smoke.__file__), "tests", "golden",
+                        f"{name}.npz")
+    with np.load(path, allow_pickle=False) as z:
+        assert str(z["__key__"]) == key
+    assert set(chip_smoke.oracle_fixture(name)) == set(z.files) - {"__key__"}
+
+
 @pytest.mark.full
 def test_kde_composed_oracle_parity_reference_exact():
     """The documented claim that max_plane_residual=inf

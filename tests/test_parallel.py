@@ -68,7 +68,15 @@ def test_sharded_kde_matches_single_device():
     color = jnp.asarray(rng.integers(0, 255, (batch, h, w, 3), dtype=np.uint8))
 
     step = sharded_kde_step(mesh, intr, cfg)
-    got = np.asarray(step(depth, color).optimized_points)
+    res = step(depth, color)
+    got = np.asarray(res.optimized_points)
+
+    # image maps keep the (batch, width) tiling; cluster tables shard the batch
+    for leaf in jax.tree_util.tree_leaves(res):
+        want_spec = P("data", None, "x") if leaf.ndim >= 3 else P("data")
+        assert leaf.sharding.is_equivalent_to(
+            jax.sharding.NamedSharding(mesh, want_spec), leaf.ndim
+        ), (leaf.shape, leaf.sharding)
 
     single = jax.jit(
         jax.vmap(lambda d, c: kde_pipeline(d, c, intr, cfg).optimized_points)
